@@ -25,6 +25,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the PyTorch port's kernels); "
+        "skips without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
