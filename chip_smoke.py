@@ -22,8 +22,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 5. Accuracy gates of ``bench.py`` against the plan's own
    ``s2_reference_10m``: finite fraction > 0.3, max <= 1, pipeline PSNR
    >= 45 dB, SAM <= 0.01 rad, method PSNR >= 28 dB.
+6. Spectral-SR fit and entry: fits the product ridge model (degree 3,
+   10 -> 32 bands) on the card on 200k seeded pixels and checks its
+   predictions against the same fit on the CPU (SR_FIT_TOL); runs
+   ``hyperres_torch.entry``'s forward (10 -> 285) and checks (8192, 285)
+   finite.
+7. SR kernel vs plain: ``csrc/sr_predict.cu`` against its plain PyTorch
+   version on a 1024 x 1024 px cube with a NaN and a nodata pixel, both
+   layouts, By = 32 and By = 285: identical 65535 mask, <= SR_STEPS_TOL
+   u16 steps.
+8. SR main path at full scale: ``predict_cube_u16`` on a (10, 9140,
+   9309) cube with a nodata stripe over the first 5 % of rows, once to
+   warm up and N_RUNS times under CUDA events; checks the (32, 9140,
+   9309) u16 product, that the stripe and nothing else is 65535, that
+   every run launched the kernel, and the kernel against its plain
+   version at that shape; times both.
 
-Prints the kernels' JSON line, then as its last line
+Both kernels build together (one nvcc each) in phase 2. Prints the
+kernels' JSON line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -50,6 +66,23 @@ EXPECT_UTM = (1523, 1550, 285)
 EXPECT_FUSED = (9140, 9309, 3)
 REPLACES = {"scanline_resample_pass1": "hyperres/kernels/pallas_ops.py:390",
             "scanline_resample_pass2": "hyperres/kernels/pallas_ops.py:467"}
+#: the SR product: a degree-3 ridge model from 10 S2 bands to 32 EMIT
+#: bands over a 9140 x 9309 px 10 m granule (scripts/bench_sr_granule.py)
+SR_BX, SR_BY, SR_DEGREE = 10, 32, 3
+SR_SHAPE = (SR_BX, 9140, 9309)
+SR_CHECK_HW = (1024, 1024)
+SR_NODATA = -9999.0
+#: kernel vs plain: the same f32 terms summed in another order move a
+#: value on a rounding edge by one u16 step
+SR_STEPS_TOL = 1
+#: card fit vs CPU fit, predictions: the f32 Gram sums run in another
+#: order on the card (measured 9.7e-6 on an H100; the CPU's f32 fit is
+#: within 9e-7 of an f64 fit of the same data)
+SR_FIT_TOL = 1e-4
+SR_SOURCE = "hyperres_torch/csrc/sr_predict.cu"
+SR_REPLACES = ("hyperres/kernels/pallas_ops.py:828 "
+               "(pallas_sr_predict_u16_cmajor); "
+               "hyperres/kernels/pallas_ops.py:725 (pallas_sr_predict_u16)")
 
 
 def log(msg: str) -> None:
@@ -142,6 +175,171 @@ def accuracy_metrics(fused, target, coeffs):
             psnr_vs(target), sam)
 
 
+def u16_compare(got, want) -> tuple:
+    """(mask equal, max |got - want| in steps, differing elements) of two
+    u16 tensors of one shape, one slice of the first axis at a time (in
+    int32: CUDA takes few operators on uint16)."""
+    import torch
+
+    same_mask, worst, n_diff = True, 0, 0
+    for g, w in zip(got, want):
+        g = g.to(torch.int32)
+        w = w.to(torch.int32)
+        same_mask &= bool(((g == 65535) == (w == 65535)).all())
+        d = (g - w).abs()
+        worst = max(worst, int(d.max()))
+        n_diff += int((d != 0).sum())
+    return same_mask, worst, n_diff
+
+
+def sr_training_data(rng, n: int = 200_000):
+    """The SR bench's synthetic training pixels
+    (scripts/bench_sr_granule.py:56-62)."""
+    X = rng.random((n, SR_BX)).astype(np.float32)
+    Y = np.clip(0.15 + 0.5 * X[:, :1] + 0.2 * X[:, 1:2]
+                + 0.05 * rng.random((n, SR_BY)), 0.01,
+                0.99).astype(np.float32)
+    return X, Y
+
+
+def sr_phases(dev) -> dict:
+    """Phases 6-8 (see the module docstring). Returns the SR kernel's
+    entry of the kernels line."""
+    import torch
+    from hyperres.core.config import RidgeSRConfig
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.entry import entry
+    from hyperres_torch.fusion.ridge_sr import RidgeSpectralSR
+    from hyperres_torch.kernels.sr_predict import (
+        KERNEL_NAME, sr_predict_u16, sr_predict_u16_reference, valid_pixels,
+    )
+
+    # -- 6. fit on the card, entry forward ---------------------------------
+    rng = np.random.default_rng(0)
+    Xt, Yt = sr_training_data(rng)
+    cfg = RidgeSRConfig(degree=SR_DEGREE)
+    t0 = time.perf_counter()
+    model = RidgeSpectralSR(SR_BX, SR_BY, cfg, device=dev).fit(Xt, Yt)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    cpu_model = RidgeSpectralSR(SR_BX, SR_BY, cfg).fit(Xt, Yt)
+    xq = rng.random((8192, SR_BX)).astype(np.float32)
+    fit_err = float((model.predict(xq).cpu() - cpu_model.predict(xq))
+                    .abs().max())
+    r2, rmse = model.evaluate(Xt[:20000], Yt[:20000])
+    log(f"SR fit ({len(Xt)} px, degree {SR_DEGREE}, F = "
+        f"{model.n_features}) on the card in {t_fit:.3f} s; vs the CPU "
+        f"fit max abs err {fit_err:.3e} (tol {SR_FIT_TOL:g}); mean R^2 "
+        f"{float(r2.mean()):.4f}, mean RMSE {float(rmse.mean()):.5f}")
+    if not fit_err <= SR_FIT_TOL:
+        fail(f"SR fit on the card disagrees with the CPU fit: {fit_err:.3e}")
+    fwd, (x,) = entry(dev)
+    y = fwd(x)
+    torch.cuda.synchronize()
+    log(f"entry forward: {tuple(y.shape)}, finite "
+        f"{bool(torch.isfinite(y).all())}")
+    if tuple(y.shape) != (8192, 285) or not bool(torch.isfinite(y).all()):
+        fail("entry forward is not a finite (8192, 285) tensor")
+
+    # -- 7. kernel vs plain at 1024 x 1024 px, both layouts, By 32 / 285 ----
+    worst = 0
+    h, w = SR_CHECK_HW
+    cube = rng.random((SR_BX, h, w)).astype(np.float32)
+    cube[3, h // 10, w // 5] = np.nan
+    cube[7, h // 2, w // 2] = SR_NODATA
+    Xc = torch.from_numpy(cube).to(dev).reshape(SR_BX, h * w)
+    for m in (model, fwd):
+        args = (m.x_mean, m.x_std, m.W, m.intercept, m.factors)
+        for layout in ("cmajor", "rowmajor"):
+            X = Xc if layout == "cmajor" else Xc.T.contiguous()
+            kw = {"nodata": SR_NODATA}
+            if layout == "rowmajor":  # validity from a mask
+                kw = {"valid": valid_pixels(X, SR_NODATA)}
+            got = sr_predict_u16(X, *args, layout=layout, **kw)
+            want = sr_predict_u16_reference(X, *args, layout=layout, **kw)
+            if layout == "rowmajor":
+                got, want = got.T, want.T
+            same, steps, n_diff = u16_compare(got, want)
+            n_nodata = int((got.to(torch.int32) == 65535).sum())
+            log(f"check SR {layout} By={m.n_outputs}: mask identical "
+                f"{same}, max |dq| {steps} (tol {SR_STEPS_TOL}), "
+                f"{n_diff} of {got.numel()} elements differ, "
+                f"{n_nodata // m.n_outputs} nodata px")
+            if not (same and steps <= SR_STEPS_TOL and
+                    n_nodata == 2 * m.n_outputs):
+                fail(f"SR kernel disagrees with its plain version "
+                     f"({layout}, By={m.n_outputs})")
+            worst = max(worst, steps)
+    del Xc, got, want, fwd, x, y
+
+    # -- 8. main SR path at full scale -------------------------------------
+    t0 = time.perf_counter()
+    cube = rng.random(SR_SHAPE, dtype=np.float32)
+    stripe = SR_SHAPE[1] // 20
+    cube[:, :stripe, :] = SR_NODATA
+    X = torch.from_numpy(cube).to(dev)
+    del cube
+    torch.cuda.synchronize()
+    n_px = SR_SHAPE[1] * SR_SHAPE[2]
+    log(f"SR cube {SR_SHAPE} f32 ({X.numel() * 4 / 1e9:.2f} GB) made and "
+        f"moved to the card in {time.perf_counter() - t0:.1f} s; nodata "
+        f"stripe rows [0, {stripe})")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    out = model.predict_cube_u16(X, nodata=SR_NODATA)
+    torch.cuda.synchronize()
+    del out
+    times = []
+    for i in range(N_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = model.predict_cube_u16(X, nodata=SR_NODATA)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1000.0)
+        if i < N_RUNS - 1:
+            del out
+    counts = dict(launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    med = statistics.median(times)
+    log(f"SR main path runs (s): {[round(t, 5) for t in times]}; median "
+        f"{med:.5f} s, {n_px / med / 1e6:.1f} Mpx/s; peak memory "
+        f"{peak_gb:.2f} GB; launches {counts}")
+    expect = (SR_BY,) + SR_SHAPE[1:]
+    if tuple(out.shape) != expect or out.dtype != torch.uint16:
+        fail(f"SR product {tuple(out.shape)} {out.dtype}, expected {expect} "
+             f"uint16")
+    if counts.get(KERNEL_NAME, 0) != N_RUNS + 1:
+        fail(f"{KERNEL_NAME} launched {counts.get(KERNEL_NAME, 0)} times in "
+             f"{N_RUNS + 1} runs of the SR main path")
+    for band in out:
+        nod = band.to(torch.int32) == 65535
+        if not (bool(nod[:stripe].all()) and not bool(nod[stripe:].any())):
+            fail("the SR product's 65535 pixels are not exactly the stripe")
+    log(f"SR product: {expect} uint16, 65535 exactly on the stripe")
+
+    X2 = X.reshape(SR_BX, n_px)
+    args = (model.x_mean, model.x_std, model.W, model.intercept,
+            model.factors)
+    want = sr_predict_u16_reference(X2, *args, nodata=SR_NODATA)
+    same, steps, n_diff = u16_compare(out.reshape(SR_BY, n_px), want)
+    log(f"SR full scale kernel vs plain: mask identical {same}, max |dq| "
+        f"{steps}, {n_diff} of {want.numel()} elements differ")
+    if not (same and steps <= SR_STEPS_TOL):
+        fail("SR kernel disagrees with its plain version at full scale")
+    worst = max(worst, steps)
+    del out, want
+    ms = cuda_ms(lambda: sr_predict_u16(X2, *args, nodata=SR_NODATA), 5)
+    plain_ms = cuda_ms(lambda: sr_predict_u16_reference(
+        X2, *args, nodata=SR_NODATA), 1)
+    log(f"SR kernel at {SR_SHAPE} -> {expect}: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms")
+    return {"name": KERNEL_NAME, "route": "cuda", "source": SR_SOURCE,
+            "replaces": SR_REPLACES, "launches": counts[KERNEL_NAME],
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
 def build_plan(scene: dict, device):
     from hyperres_torch.fusion.fused import FusedOrthoFusionPlan
     from hyperres_torch.spectral.srf_tables import builtin_srf
@@ -179,11 +377,11 @@ def main() -> None:
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load_library("scanline_warp")
-    info = _build.build_info["scanline_warp"]
-    log(f"build: scanline_warp in {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {info['seconds']:.3f} s)")
-    log(info["ptxas"])
+    _build.load_libraries(["scanline_warp", "sr_predict"])
+    log(f"build: both kernels in {time.perf_counter() - t0:.3f} s")
+    for name, info in _build.build_info.items():
+        log(f"build: {name}: nvcc {info['seconds']:.3f} s")
+        log(info["ptxas"])
 
     # -- 3. kernel vs plain at the scale-0.25 bench scene ------------------
     worst = {}
@@ -283,6 +481,10 @@ def main() -> None:
             "source": "hyperres_torch/csrc/scanline_warp.cu",
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"]})
+    del raw, s2, plan, scene
+    torch.cuda.empty_cache()
+
+    kernels.append(sr_phases(dev))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

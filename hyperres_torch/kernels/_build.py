@@ -5,8 +5,9 @@ compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library at
 first use and loaded with ``ctypes``. The library lands in
 ``build/hyperres_torch/`` at the repository root (listed in
 ``.gitignore``), named by a hash of its source and flags so an edited
-source is rebuilt. There is no fallback: a missing ``nvcc`` or a failed
-build raises.
+source is rebuilt. ``load_libraries`` starts one nvcc per source, all
+together. There is no fallback: a missing ``nvcc`` or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hyperres_torch"
@@ -45,32 +46,52 @@ def _nvcc() -> str:
     return found
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` (once per source/flag hash) and load
-    it. Raises ``RuntimeError`` with the compiler output on failure."""
-    if name in _loaded:
-        return _loaded[name]
+def _lib_path(name: str):
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
-    info = {"seconds": 0.0, "ptxas": ""}
-    if not lib_path.exists():
+    return src, BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+def load_libraries(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Compile ``csrc/<name>.cu`` for each name not yet built (once per
+    source/flag hash), one nvcc per source, all started together; then
+    load them. Raises ``RuntimeError`` with the compiler output if any
+    build fails (after every nvcc has ended)."""
+    jobs = {}
+    for name in names:
+        if name in _loaded or name in jobs:
+            continue
+        src, lib_path = _lib_path(name)
+        if lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs[name] = (proc, tmp, src, lib_path, time.perf_counter())
+    errors = []
+    for name, (proc, tmp, src, lib_path, t0) in jobs.items():
+        out, err = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {src}:\n"
-                f"{proc.stdout}\n{proc.stderr}")
+            errors.append(f"nvcc failed ({proc.returncode}) building {src}:"
+                          f"\n{out}\n{err}")
+            continue
         os.replace(tmp, lib_path)
-        info = {"seconds": time.perf_counter() - t0,
-                "ptxas": (proc.stdout + proc.stderr).strip()}
-    lib = ctypes.CDLL(str(lib_path))
-    build_info[name] = info
-    _loaded[name] = lib
-    return lib
+        build_info[name] = {"seconds": time.perf_counter() - t0,
+                            "ptxas": (out + err).strip()}
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    for name in names:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(_lib_path(name)[1]))
+            build_info.setdefault(name, {"seconds": 0.0, "ptxas": ""})
+    return {name: _loaded[name] for name in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """:func:`load_libraries` for one library."""
+    return load_libraries([name])[name]

@@ -9,6 +9,7 @@ defaults); ``tests/test_torch_host.py`` holds each one
 
 from __future__ import annotations
 
+from itertools import combinations_with_replacement
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -311,3 +312,42 @@ def build_srf_weight_matrix(
         valid.append(True)
     W = np.stack(cols, axis=1).astype(np.float32)
     return W, names, np.asarray(valid, dtype=bool)
+
+
+# -- hyperres/kernels/lstsq.py:112 -------------------------------------------
+
+def poly_feature_exponents(n_features: int, degree: int,
+                           include_bias: bool = False) -> np.ndarray:
+    """(F, n_features) exponent matrix enumerating all monomials with
+    1 <= total degree <= degree (plus the constant when include_bias),
+    in sklearn's ordering (degree-major, combinations with replacement)."""
+    rows: List[np.ndarray] = []
+    if include_bias:
+        rows.append(np.zeros(n_features, dtype=np.int32))
+    for d in range(1, degree + 1):
+        for combo in combinations_with_replacement(range(n_features), d):
+            e = np.zeros(n_features, dtype=np.int32)
+            for i in combo:
+                e[i] += 1
+            rows.append(e)
+    return np.stack(rows, axis=0)
+
+
+# -- hyperres/kernels/lstsq.py:129 -------------------------------------------
+
+def poly_factor_indices(n_features: int, degree: int,
+                        include_bias: bool = False) -> np.ndarray:
+    """(F, degree) int32: factor each monomial into exactly ``degree``
+    indices into [1, x_0, ..., x_{n-1}] (index 0 is the constant-one
+    column) — monomial m = prod_d X_ext[:, factor_idx[m, d]]."""
+    if degree < 1:
+        raise ValueError("degree must be >= 1")
+    exps = poly_feature_exponents(n_features, degree, include_bias)
+    factor_idx = np.zeros((exps.shape[0], degree), dtype=np.int32)
+    for row, e in enumerate(exps):
+        fs = []
+        for i, p in enumerate(e):
+            fs.extend([i + 1] * int(p))
+        fs.extend([0] * (degree - len(fs)))
+        factor_idx[row] = fs
+    return factor_idx

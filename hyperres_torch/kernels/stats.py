@@ -1,4 +1,5 @@
-"""Masked percentile stretch and binary erosion (``hyperres/kernels/stats.py``).
+"""Masked percentile stretch, binary erosion and the u16 reflectance
+quantization (``hyperres/kernels/stats.py``).
 
 The reference finds its order statistics with a 32-step bit search
 (it works around the TPU sort's code size). Here they come from
@@ -90,3 +91,15 @@ def erode_mask(mask: torch.Tensor, iterations: int = 1) -> torch.Tensor:
         m = (p[1:-1, 1:-1] & p[:-2, 1:-1] & p[2:, 1:-1]
              & p[1:-1, :-2] & p[1:-1, 2:])
     return m
+
+
+def quantize_reflectance_u16(x: torch.Tensor, valid: torch.Tensor,
+                             scale: float = 10000.0,
+                             nodata_u16: int = 65535) -> torch.Tensor:
+    """EMIT tile quantization (``stats.py:305``): ``rint(x * scale)``
+    (half to even), clipped to [0, nodata - 1], as uint16; ``nodata``
+    where ``valid`` (broadcast against ``x``) is False."""
+    q = torch.clamp(torch.round(x * scale), 0.0, float(nodata_u16 - 1))
+    # int32 until the end: CUDA takes few operators on uint16 beyond copy
+    q = torch.where(valid, q.to(torch.int32), nodata_u16)
+    return q.to(torch.uint16)

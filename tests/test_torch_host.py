@@ -34,8 +34,9 @@ def scene():
 
 
 def test_port_imports_without_jax():
-    """hyperres_torch, its plan and scene modules and chip_smoke import
-    in a process where importing jax raises."""
+    """hyperres_torch, its plan, ridge-SR, kernel, entry and scene
+    modules and chip_smoke import in a process where importing jax
+    raises."""
     code = textwrap.dedent("""
         import importlib, sys
         class _NoJax:
@@ -47,6 +48,9 @@ def test_port_imports_without_jax():
         for m in ("hyperres_torch", "hyperres_torch.fusion.fused",
                   "hyperres_torch.kernels.banded",
                   "hyperres_torch.kernels._build",
+                  "hyperres_torch.fusion.ridge_sr",
+                  "hyperres_torch.kernels.sr_predict",
+                  "hyperres_torch.entry",
                   "hyperres_torch.testing.bench_scene", "chip_smoke"):
             importlib.import_module(m)
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]

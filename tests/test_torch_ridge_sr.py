@@ -1,0 +1,343 @@
+"""The PyTorch port's ridge spectral-SR path against the JAX reference on
+the CPU: the monomial tables, the ridge helpers, the u16 quantization,
+the fit, ``predict``/``forward``, ``predict_cube``, ``predict_cube_u16``
+against both JAX engines (the XLA program and the fused Pallas kernel in
+interpret mode), the row-major serving form against the row-major Pallas
+kernel, the ``.npz`` checkpoint in both directions and the entry forward.
+Inputs are made with NumPy from a seed and given to both packages. The
+hand-written kernel itself runs only on a CUDA device (marked ``gpu``).
+
+Tolerances: u16 products agree on the 65535 mask exactly and to 1 step
+elsewhere (the ridge contraction sums in another order, which moves a
+value sitting on a rounding edge by one step). Reflectances from the
+same parameters agree to 1e-5 absolute (f32 sums of 285 terms).
+"""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import jax.numpy as jnp  # noqa: E402
+from hyperres.core.config import RidgeSRConfig  # noqa: E402
+from hyperres.fusion import ridge_sr as jridge  # noqa: E402
+from hyperres.kernels import lstsq as jlstsq  # noqa: E402
+from hyperres.kernels import stats as jstats  # noqa: E402
+from hyperres.kernels.pallas_ops import pallas_sr_predict_u16  # noqa: E402
+from hyperres_torch.device import launch_counts, reset_launch_counts  # noqa: E402
+from hyperres_torch.fusion import ridge_sr as tridge  # noqa: E402
+from hyperres_torch.kernels import host  # noqa: E402
+from hyperres_torch.kernels import lstsq as tlstsq  # noqa: E402
+from hyperres_torch.kernels import sr_predict  # noqa: E402
+from hyperres_torch.kernels import stats as tstats  # noqa: E402
+
+T = torch.from_numpy
+NODATA = -9999.0
+#: (Bx, By, degree): a small model and the product model (F = 285)
+MODELS = {"small": (6, 12, 2), "product": (10, 32, 3)}
+
+
+def _training_data(bx, by, n, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.random((n, bx)).astype(np.float32)
+    Y = np.clip(0.1 + 0.5 * X[:, :1] + 0.2 * X[:, 1:2]
+                + 0.1 * rng.random((n, by)), 0.01, 0.99).astype(np.float32)
+    return X, Y
+
+
+def _cube(bx, h, w, seed):
+    """(Bx, H, W) in [0, 1) with a NaN band, a nodata band and a pixel
+    that is nodata in every band."""
+    cube = np.random.default_rng(seed).random((bx, h, w)).astype(np.float32)
+    cube[2, 3, 5] = np.nan
+    cube[bx - 1, 10, 2] = NODATA
+    cube[:, 20, 30] = NODATA
+    return cube
+
+
+def _carry(jmodel):
+    """The port's model holding the JAX model's parameters."""
+    p = jmodel.params
+    return tridge.RidgeSpectralSR(
+        jmodel.n_inputs, jmodel.n_outputs, jmodel.cfg).params_from_numpy(
+        np.asarray(p.x_mean), np.asarray(p.x_std), np.asarray(p.W),
+        np.asarray(p.intercept))
+
+
+@pytest.fixture(scope="module")
+def jax_models():
+    out = {}
+    for name, (bx, by, deg) in MODELS.items():
+        X, Y = _training_data(bx, by, 6000, 1)
+        m = jridge.RidgeSpectralSR(bx, by, RidgeSRConfig(degree=deg,
+                                                         batch_pixels=512))
+        out[name] = m.fit(X, Y)
+    return out
+
+
+def _assert_u16_close(got, want, steps=1):
+    got = np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.dtype == np.uint16
+    np.testing.assert_array_equal(got == 65535, want == 65535)
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= steps, d.max()
+
+
+# -- host tables and plain helpers ------------------------------------------
+
+@pytest.mark.parametrize("bx,degree,bias", [(4, 2, False), (6, 2, True),
+                                            (10, 3, False)])
+def test_monomial_tables_copy(bx, degree, bias):
+    """Port-owned copies == hyperres.kernels.lstsq's (array_equal)."""
+    e = host.poly_feature_exponents(bx, degree, bias)
+    f = host.poly_factor_indices(bx, degree, bias)
+    np.testing.assert_array_equal(
+        e, jlstsq.poly_feature_exponents(bx, degree, bias))
+    np.testing.assert_array_equal(
+        f, jlstsq.poly_factor_indices(bx, degree, bias))
+    assert f.dtype == np.int32
+    if (bx, degree) == (10, 3):
+        assert f.shape == (285, 3)
+
+
+@pytest.mark.parametrize("bx,degree", [(4, 2), (10, 3)])
+def test_poly_expander_matches_jax(bx, degree, rng):
+    """The gathered-column products equal the reference's bit for bit
+    (same factors, multiplied in the same order)."""
+    X = rng.standard_normal((300, bx)).astype(np.float32)
+    texp, tf = tlstsq.make_poly_expander(bx, degree)
+    jexp, jf = jlstsq.make_poly_expander(bx, degree)
+    assert tf == jf
+    np.testing.assert_array_equal(texp(T(X)).numpy(),
+                                  np.asarray(jexp(jnp.asarray(X))))
+
+
+def test_ridge_helpers_match_jax(rng):
+    """logit/sigmoid (with their clips) to 1e-6 relative, the f32
+    Cholesky ridge solve to 1e-4 relative (another elimination order),
+    per-band R^2/RMSE to 1e-5 relative."""
+    x = np.concatenate([rng.random(200), [0.0, 1.0, 1e-6, 1 - 1e-7]]
+                       ).astype(np.float32)
+    np.testing.assert_allclose(tlstsq.logit(T(x), 1e-4).numpy(),
+                               np.asarray(jlstsq.logit(jnp.asarray(x), 1e-4)),
+                               rtol=1e-6, atol=1e-6)
+    z = np.concatenate([rng.standard_normal(200) * 20, [-80.0, 80.0]]
+                       ).astype(np.float32)
+    np.testing.assert_allclose(tlstsq.sigmoid(T(z)).numpy(),
+                               np.asarray(jlstsq.sigmoid(jnp.asarray(z))),
+                               rtol=1e-6, atol=1e-7)
+    A = rng.standard_normal((400, 20)).astype(np.float32)
+    XtX = (A.T @ A).astype(np.float32)
+    XtY = rng.standard_normal((20, 5)).astype(np.float32)
+    np.testing.assert_allclose(
+        tlstsq.ridge_solve(T(XtX), T(XtY), 0.5).numpy(),
+        np.asarray(jlstsq.ridge_solve(jnp.asarray(XtX), jnp.asarray(XtY),
+                                      0.5)), rtol=1e-4, atol=1e-6)
+    yt = rng.random((500, 7)).astype(np.float32)
+    yp = (yt + 0.05 * rng.standard_normal((500, 7))).astype(np.float32)
+    yp[3, 2] = np.nan
+    for a, b in zip(tlstsq.r2_rmse_per_band(T(yt), T(yp)),
+                    jlstsq.r2_rmse_per_band(jnp.asarray(yt),
+                                            jnp.asarray(yp))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_quantize_reflectance_u16_matches_jax(rng):
+    """Exact: rint half to even, the clip to [0, 65534], the nodata
+    fill."""
+    x = np.concatenate([rng.random(500) * 7.0 - 0.5,
+                        [0.00005, 0.00015, 0.00025, 6.5534, 6.5535, -1.0,
+                         np.nan]]).astype(np.float32)
+    valid = np.isfinite(x) & (rng.random(x.size) > 0.1)
+    got = tstats.quantize_reflectance_u16(T(np.nan_to_num(x)), T(valid))
+    want = jstats.quantize_reflectance_u16(jnp.asarray(np.nan_to_num(x)),
+                                           jnp.asarray(valid))
+    assert got.dtype == torch.uint16
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- the model ---------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_predict_and_forward_with_carried_params(jax_models, name, rng):
+    """JAX parameters carried into the port: predict / forward == JAX
+    predict to 1e-5; predict_cube's NaN pattern identical and values to
+    1e-5; evaluate's R^2 / RMSE to 1e-5."""
+    jm = jax_models[name]
+    tm = _carry(jm)
+    X = rng.random((700, jm.n_inputs)).astype(np.float32)
+    want = jm.predict(X)
+    np.testing.assert_allclose(tm.predict(X).numpy(), want, atol=1e-5)
+    np.testing.assert_allclose(tm(T(X)).numpy(), want, atol=1e-5)
+    cube = _cube(jm.n_inputs, 23, 37, 2)
+    pc = tm.predict_cube(cube, nodata=NODATA, batch_pixels=100).numpy()
+    jc = jm.predict_cube(cube, nodata=NODATA)
+    np.testing.assert_array_equal(np.isnan(pc), np.isnan(jc))
+    np.testing.assert_allclose(pc, jc, atol=1e-5)
+    Y = np.clip(want + 0.01, 0, 1).astype(np.float32)
+    for a, b in zip(tm.evaluate(X, Y), jm.evaluate(X, Y)):
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_predict_cube_u16_matches_jax(jax_models, name, engine):
+    """predict_cube_u16 == JAX predict_cube_u16 (the XLA program, and the
+    fused Pallas kernel in interpret mode), 37 x 41 px (not a multiple of
+    any tile or batch) with NaN and -9999 pixels: identical 65535 mask,
+    <= 1 step. The row-major layout gives the same product."""
+    jm = jax_models[name]
+    tm = _carry(jm)
+    cube = _cube(jm.n_inputs, 37, 41, 3)
+    want = jm.predict_cube_u16(cube, nodata=NODATA, engine=engine)
+    got = tm.predict_cube_u16(cube, nodata=NODATA)
+    assert tuple(got.shape) == (jm.n_outputs, 37, 41)
+    _assert_u16_close(got.numpy(), want)
+    assert (got[:, 3, 5] == 65535).all() and (got[:, 10, 2] == 65535).all()
+    assert int((got == 65535).sum()) == 3 * jm.n_outputs
+    hwb = np.ascontiguousarray(cube.transpose(1, 2, 0))
+    rm = tm.predict_cube_u16(hwb, nodata=NODATA, layout="rowmajor")
+    np.testing.assert_array_equal(rm.permute(2, 0, 1).numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_rowmajor_serving_matches_pallas(jax_models, name, rng):
+    """sr_predict_u16(X, valid, model) == pallas_sr_predict_u16 in
+    interpret mode (tile_rows 256, N = 1000 not a multiple): identical
+    mask, <= 1 step."""
+    jm = jax_models[name]
+    tm = _carry(jm)
+    X = rng.random((1000, jm.n_inputs)).astype(np.float32)
+    valid = rng.random(1000) > 0.2
+    sels, _ = jlstsq.poly_selector_matrices(jm.n_inputs, jm.cfg.degree)
+    p = jm.params
+    want = pallas_sr_predict_u16(
+        jnp.asarray(X), jnp.asarray(valid), p.x_mean, p.x_std,
+        tuple(jnp.asarray(s) for s in sels), p.W, p.intercept,
+        tile_rows=256, interpret=True)
+    got = tridge.sr_predict_u16(X, valid, tm)
+    _assert_u16_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fit_matches_jax(weighted):
+    """The port's own fit against the JAX fit on the same data (product
+    model, 20k px): x_mean / x_std to 1e-6 relative; the f32 Gram
+    system is summed in another order, so the predictions agree to
+    1e-5 (largest difference measured on the CPU: 1.2e-6)."""
+    bx, by, deg = MODELS["product"]
+    X, Y = _training_data(bx, by, 20000, 4)
+    w = None
+    if weighted:
+        w = np.random.default_rng(5).random(20000).astype(np.float32)
+    jm = jridge.RidgeSpectralSR(bx, by, RidgeSRConfig(degree=deg)).fit(
+        X, Y, w)
+    tm = tridge.RidgeSpectralSR(bx, by, RidgeSRConfig(degree=deg)).fit(
+        X, Y, w)
+    np.testing.assert_allclose(tm.x_mean.numpy(),
+                               np.asarray(jm.params.x_mean), rtol=1e-6)
+    np.testing.assert_allclose(tm.x_std.numpy(),
+                               np.asarray(jm.params.x_std), rtol=1e-6)
+    Xq = np.random.default_rng(6).random((2000, bx)).astype(np.float32)
+    np.testing.assert_allclose(tm.predict(Xq).numpy(), jm.predict(Xq),
+                               atol=1e-5)
+
+
+def test_checkpoint_crosses_both_ways(jax_models, tmp_path, rng):
+    """A JAX save_params .npz loads into the port and predicts the same
+    (1e-5); the port's .npz loads into JAX and predicts the same."""
+    jm = jax_models["product"]
+    jax_ckpt = tmp_path / "jax.npz"
+    jridge.save_params(jax_ckpt, jm)
+    tm = tridge.load_params(jax_ckpt)
+    assert tm.cfg == jm.cfg and tm.n_outputs == jm.n_outputs
+    X = rng.random((300, jm.n_inputs)).astype(np.float32)
+    np.testing.assert_allclose(tm.predict(X).numpy(), jm.predict(X),
+                               atol=1e-5)
+    port_ckpt = tmp_path / "port.npz"
+    tridge.save_params(port_ckpt, tm)
+    back = jridge.load_params(port_ckpt)
+    assert back.cfg == jm.cfg
+    np.testing.assert_array_equal(np.asarray(back.params.W),
+                                  np.asarray(jm.params.W))
+    np.testing.assert_allclose(back.predict(X), jm.predict(X), atol=0)
+
+
+def test_entry_matches_graft_entry():
+    """hyperres_torch.entry: the forward batch equals
+    __graft_entry__.entry's; with the reference's parameters (a JAX fit
+    on the same pixels) the port's forward equals the reference forward
+    to 1e-5; the port's own entry forward (its own fit) is (8192, 285),
+    finite, and also within 1e-5 of the reference (measured: 1.8e-6)."""
+    import __graft_entry__
+    from hyperres_torch.entry import entry, entry_data
+
+    jfwd, (jx,) = __graft_entry__.entry()
+    want = np.asarray(jfwd(jx))
+    X, Y, x = entry_data()
+    np.testing.assert_array_equal(x, np.asarray(jx))
+    jm = jridge.RidgeSpectralSR(10, 285, RidgeSRConfig(degree=3)).fit(X, Y)
+    np.testing.assert_allclose(_carry(jm)(T(x)).numpy(), want, atol=1e-5)
+    fwd, (tx,) = entry()
+    got = fwd(tx).detach().numpy()
+    assert got.shape == (8192, 285) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_wrapper_rejects_bad_operands(jax_models):
+    tm = _carry(jax_models["small"])
+    X = torch.zeros((6, 10))
+    args = (tm.x_mean, tm.x_std, tm.W, tm.intercept, tm.factors)
+    with pytest.raises(ValueError, match="layout"):
+        sr_predict.sr_predict_u16(X, *args, layout="nhwc")
+    with pytest.raises(TypeError, match="float32"):
+        sr_predict.sr_predict_u16(X.double(), *args)
+    with pytest.raises(ValueError, match="x_mean"):
+        sr_predict.sr_predict_u16(X.T.contiguous(), *args)
+    with pytest.raises(ValueError, match="valid"):
+        sr_predict.sr_predict_u16(X, *args, valid=torch.ones(3, dtype=bool))
+    with pytest.raises(RuntimeError, match="fit"):
+        tridge.RidgeSpectralSR(6, 12).predict(np.zeros((2, 6), np.float32))
+
+
+# -- the kernel on the card --------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the SR-predict kernel has no CPU "
+                    "mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["cmajor", "rowmajor"])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_sr_kernel_matches_plain_on_gpu(cuda_device, jax_models, name,
+                                        layout):
+    """The CUDA kernel == its plain version on the card (identical 65535
+    mask, <= 1 step), validity from the bands (cmajor, with nodata) or
+    from a mask (rowmajor); each launch counts once."""
+    tm = _carry(jax_models[name]).to(cuda_device)
+    cube = _cube(tm.n_inputs, 61, 67, 7)
+    X = T(cube.reshape(tm.n_inputs, -1)).to(cuda_device)
+    args = (tm.x_mean, tm.x_std, tm.W, tm.intercept, tm.factors)
+    kw = {"nodata": NODATA}
+    if layout == "rowmajor":
+        X = X.T.contiguous()
+        kw = {"valid": sr_predict.valid_pixels(X, NODATA)}
+    reset_launch_counts()
+    got = sr_predict.sr_predict_u16(X, *args, layout=layout, **kw)
+    want = sr_predict.sr_predict_u16_reference(X, *args, layout=layout,
+                                               **kw)
+    torch.cuda.synchronize()
+    assert launch_counts == {sr_predict.KERNEL_NAME: 1}
+    _assert_u16_close(got.cpu().numpy(), want.cpu().numpy())
