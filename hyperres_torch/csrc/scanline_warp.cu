@@ -20,6 +20,16 @@
 // are evaluated directly, so no window, no feasibility check and no
 // nodata for a wide tile.
 //
+// It also replaces the dense one-pass kernel pallas_scanline_resample
+// (hyperres/kernels/pallas_ops.py:189), which sums k(pos - s) * src over
+// the WHOLE source axis in 128-sample tiles (bf16x3 or f32 on the MXU).
+// k vanishes outside the four taps evaluated here, so for finite src the
+// two sums are equal; here in exact f32. (For a non-finite src the dense
+// sum makes a whole output row non-finite, 0 * NaN = NaN; the taps poison
+// only the outputs that read it.) The reference warp transposes pass 1's
+// output for its second dense pass and transposes the result back; the
+// same launches as pass 2 above compute that without either transpose.
+//
 // What bounds it on Hopper: memory. Each output element costs four f32
 // FMAs and four source reads (neighbouring destinations share taps, so
 // most reads hit L2); the write is one f32. What the design does about

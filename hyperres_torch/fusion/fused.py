@@ -7,7 +7,8 @@
   60 m -> 10 m upsample with the fit applied.
 - :class:`FusedOrthoFusionPlan` — the full raw -> fused granule path:
   GLT gather + two-pass cubic scanline warp onto the S2-anchored UTM
-  grid (the hand-written kernel), then the fusion phases.
+  grid (the hand-written kernel, by its banded route or, with
+  ``warp_kernel="pallas"``, its dense route), then the fusion phases.
 
 A plan holds buffers, not parameters: its state is the host precompute
 (GLT indices, warp index fields, SRF weights, grid-transfer specs),
@@ -15,9 +16,10 @@ built once per grid pair and moved to ``device``. PyTorch runs eagerly,
 so there is no compiled program; ``state_dict_numpy``/``from_state``
 carry the state across (for instance from the reference's plan).
 
-Ported: ``fusion_method="ot_poly"`` (the bench default) with the
-``"srf"`` synthesis. The other methods, the box synthesis and the
-tap-loop warp raise :class:`FusedUnsupported` for now.
+Ported: ``fusion_method="ot_poly"`` (the bench default) and
+``"ot_affine"`` with the ``"srf"`` synthesis. ``linear``, ``histogram``,
+the box synthesis and the tap-loop warp raise :class:`FusedUnsupported`
+for now.
 """
 
 from __future__ import annotations
@@ -40,17 +42,18 @@ from ..kernels.host import (
     separable_fast_spec, separable_index_axes, separable_weight_matrix,
     source_index_field,
 )
-from ..kernels.lstsq import polyfit, polyval_channels
+from ..kernels.lstsq import affine_fit, polyfit, polyval_channels
 from ..kernels.sinkhorn import ot_barycentric_targets
 from ..kernels.srf import srf_synthesize
 from ..kernels.stats import shared_percentile_stretch
 from ..kernels.warp import (
-    orthowarp_two_pass, separable_resample_fast, separable_resample_matmul,
+    WARP_BACKENDS, orthowarp_two_pass, separable_resample_fast,
+    separable_resample_matmul,
 )
 from ..spectral.srf_tables import builtin_srf
 from .sampling import sample_valid_pixels_device
 
-FUSED_METHODS = ("ot_poly",)
+FUSED_METHODS = ("ot_poly", "ot_affine")
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -80,9 +83,12 @@ class FusionStatics:
 @dataclass(frozen=True)
 class WarpStatics:
     """Static configuration of the orthowarp stage (the two-pass
-    scanline warp; the tap loop is not ported yet)."""
+    scanline warp; the tap loop is not ported yet). ``backend`` is
+    ``orthowarp_two_pass``'s, as in the reference's ``WarpStatics``:
+    ``"pallas"`` for the dense route, any other for the banded one."""
 
     resampling: str = "cubic"    # "cubic" | "bilinear"
+    backend: str = "auto"        # "auto" | "xla" | "pallas" | "pallas_banded"
 
 
 def _as_f32(x, device: torch.device) -> torch.Tensor:
@@ -123,18 +129,10 @@ def _synth_and_valid(st: FusionStatics, cube_hwb, s2rgb10_hwb, Wsrf, Wr60,
     return synth, s2_60, valid60
 
 
-def _fusion_core(st: FusionStatics, cube_hwb, s2rgb10_hwb, Wsrf, Wr60,
-                 Wc60, Wr10, Wc10, generator: torch.Generator) -> Dict:
-    """The four fusion phases (``fused.py:145``), ``ot_poly`` method."""
-    synth, s2_60, valid60 = _synth_and_valid(st, cube_hwb, s2rgb10_hwb,
-                                             Wsrf, Wr60, Wc60)
-    n_valid = valid60.sum()
-    # Phase 3: shared stretch (display order B4, B3, B2) + OT/poly fit
-    emit_n = shared_percentile_stretch(synth.flip(-1), valid60, st.pmin,
-                                       st.pmax)
-    s2_n = shared_percentile_stretch(s2_60.flip(-1), valid60, st.pmin,
-                                     st.pmax)
-    c = emit_n.shape[-1]
+def _ot_samples(st: FusionStatics, emit_n, s2_n, valid60,
+                generator: torch.Generator):
+    """The OT stage's samples of the stretched 60 m pixels and their 0/1
+    slot weights: (Xs, wxs, Ys, wys)."""
     zero = torch.zeros((), device=emit_n.device)
     Xs, wxs = sample_valid_pixels_device(emit_n, valid60, st.ot.n_samples,
                                          generator=generator)
@@ -142,32 +140,81 @@ def _fusion_core(st: FusionStatics, cube_hwb, s2rgb10_hwb, Wsrf, Wr60,
                                          generator=generator)
     # zero the padded (weight-0) slots: with fewer valid pixels than
     # samples they come from invalid pixels and may be NaN, which would
-    # poison the weighted QR (NaN * 0 = NaN)
+    # poison the weighted fits (NaN * 0 = NaN)
     Xs = torch.where(wxs[:, None] > 0, Xs, zero)
     Ys = torch.where(wys[:, None] > 0, Ys, zero)
+    return Xs, wxs, Ys, wys
+
+
+def _stretch(st: FusionStatics, synth, s2_60, valid60):
+    """Phase 3's shared stretch, display order B4, B3, B2."""
+    return (shared_percentile_stretch(synth.flip(-1), valid60, st.pmin,
+                                      st.pmax),
+            shared_percentile_stretch(s2_60.flip(-1), valid60, st.pmin,
+                                      st.pmax))
+
+
+def apply_params(fusion_method: str, params: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """A fitted mapping applied to (..., C): the per-channel polynomial
+    of ``ot_poly`` (params (C, deg+1)) or the channel-mixing affine map
+    ``x @ A + t`` of ``ot_affine`` (params (C+1, C), t in the last
+    row)."""
+    if fusion_method == "ot_affine":
+        return x @ params[:-1] + params[-1]
+    return polyval_channels(params, x)
+
+
+def _fit_params(st: FusionStatics, Xs, wxs, Ybar, n_valid):
+    """The fit on the OT targets, with the reference's fallbacks:
+    ``ot_poly`` per-channel degree-``st.degree`` polynomials, identity
+    under ``min_pixels`` (poly_regression.py:38-41); ``ot_affine`` the
+    weighted affine map (``fused.py:193-200``), identity under 2 valid
+    pixels (the where discards the fit, finite or not)."""
+    c = Xs.shape[1]
+    dev = Xs.device
+    if st.fusion_method == "ot_affine":
+        zero = torch.zeros((), device=dev)
+        A, t = affine_fit(Xs, torch.where(wxs[:, None] > 0, Ybar, zero),
+                          wxs)
+        ok = n_valid >= 2
+        A = torch.where(ok, A, torch.eye(c, dtype=A.dtype, device=dev))
+        t = torch.where(ok, t, torch.zeros_like(t))
+        return torch.cat([A, t[None, :]], dim=0)
+    fit = torch.stack([polyfit(Xs[:, ch], Ybar[:, ch], st.degree, w=wxs)
+                       for ch in range(c)])
+    ident = torch.zeros((c, st.degree + 1), dtype=torch.float32, device=dev)
+    ident[:, -2] = 1.0
+    return torch.where(n_valid >= st.min_pixels, fit, ident)
+
+
+def _fusion_core(st: FusionStatics, cube_hwb, s2rgb10_hwb, Wsrf, Wr60,
+                 Wc60, Wr10, Wc10, generator: torch.Generator) -> Dict:
+    """The four fusion phases (``fused.py:145``), ``ot_poly`` and
+    ``ot_affine`` methods."""
+    synth, s2_60, valid60 = _synth_and_valid(st, cube_hwb, s2rgb10_hwb,
+                                             Wsrf, Wr60, Wc60)
+    n_valid = valid60.sum()
+    # Phase 3: shared stretch + OT fit
+    emit_n, s2_n = _stretch(st, synth, s2_60, valid60)
+    Xs, wxs, Ys, wys = _ot_samples(st, emit_n, s2_n, valid60, generator)
     Ybar = ot_barycentric_targets(
         Xs, Ys, reg=st.ot.reg, num_itermax=st.ot.num_itermax,
         stop_thr=st.ot.stop_thr, wx=wxs, wy=wys,
         debias=st.ot.debias)
-    fit = torch.stack([polyfit(Xs[:, ch], Ybar[:, ch], st.degree, w=wxs)
-                       for ch in range(c)])
-    ident = torch.zeros((c, st.degree + 1), dtype=torch.float32,
-                        device=emit_n.device)
-    ident[:, -2] = 1.0
-    # identity fallback under min_pixels (poly_regression.py:38-41)
-    params = torch.where(n_valid >= st.min_pixels, fit, ident)
+    params = _fit_params(st, Xs, wxs, Ybar, n_valid)
 
     matched60 = torch.clamp(
-        torch.where(valid60[..., None], polyval_channels(params, emit_n),
-                    emit_n), 0.0, 1.0)
+        torch.where(valid60[..., None],
+                    apply_params(st.fusion_method, params, emit_n), emit_n),
+        0.0, 1.0)
     # Phase 4: bilinear upsample of the stretched sim bands to 10 m and
     # the same mapping there; invalid 60 m sources contribute nothing,
     # zero valid mass -> NaN -> masked
     sim10 = _upsample_10m(st, emit_n, valid60, Wr10, Wc10)
     mask10 = torch.isfinite(sim10).all(dim=-1)
-    mapped10 = torch.clamp(polyval_channels(params,
-                                            torch.nan_to_num(sim10)),
-                           0.0, 1.0)
+    mapped10 = torch.clamp(apply_params(st.fusion_method, params,
+                                        torch.nan_to_num(sim10)), 0.0, 1.0)
     fused = torch.where(mask10[..., None], mapped10,
                         torch.tensor(float("nan"), device=sim10.device))
     out = {"fused_10m": fused, "matched_60m": matched60,
@@ -368,6 +415,21 @@ class FusedFusionPlan:
                             _as_f32(s2_rgb10_hwb, self.device),
                             *self._matrices(), generator)
 
+    def ot_samples(self, emit_cube_hwb, s2_rgb10_hwb,
+                   generator: Optional[torch.Generator] = None):
+        """The samples a call with the same inputs and ``generator``
+        hands to the OT stage: (Xs, wxs, Ys, wys), the stretched 60 m
+        EMIT and S2 pixels (B4, B3, B2) and their 0/1 slot weights."""
+        if generator is None:
+            generator = self.generator()
+        st = self.statics
+        synth, s2_60, valid60 = _synth_and_valid(
+            st, _as_f32(emit_cube_hwb, self.device),
+            _as_f32(s2_rgb10_hwb, self.device), self._Wsrf, self._Wr60,
+            self._Wc60)
+        emit_n, s2_n = _stretch(st, synth, s2_60, valid60)
+        return _ot_samples(st, emit_n, s2_n, valid60, generator)
+
     def s2_reference_10m(self, emit_cube_hwb, s2_rgb10_hwb) -> torch.Tensor:
         """Accuracy-audit target (see :func:`_audit_target_program`):
         pass the same (warped) EMIT cube and 10 m S2 the plan consumed."""
@@ -409,7 +471,12 @@ class FusedOrthoFusionPlan:
         if warp_kernel == "taploop":
             raise FusedUnsupported("warp_kernel 'taploop' is not ported "
                                    "yet; use 'two_pass'")
-        if warp_kernel not in ("auto", "two_pass"):
+        # "pallas": the dense scanline route; "pallas_banded", "auto" and
+        # "two_pass": the banded one. The kernel needs no window, so the
+        # reference's banded feasibility check has no counterpart here.
+        backends = {"auto": "auto", "two_pass": "auto", "pallas": "pallas",
+                    "pallas_banded": "pallas_banded"}
+        if warp_kernel not in backends:
             raise ValueError(f"unknown warp_kernel {warp_kernel!r}")
         dev = resolve_device(device)
         self._fusion = FusedFusionPlan(
@@ -422,7 +489,7 @@ class FusedOrthoFusionPlan:
         cstar = scanline_cstar(wr, wc, ortho_grid.height)
         self._load_warp({"flat_idx": flat_idx, "valid": valid, "wr": wr,
                          "wc": wc, "cstar": cstar},
-                        WarpStatics(resampling), dev)
+                        WarpStatics(resampling, backends[warp_kernel]), dev)
 
     @classmethod
     def from_state(cls, state: Dict, statics: FusionStatics,
@@ -433,7 +500,8 @@ class FusedOrthoFusionPlan:
         """A plan from a :meth:`state_dict_numpy` dictionary: the warp
         arrays ``flat_idx``, ``valid``, ``wr``, ``wc``, ``cstar`` and the
         fusion state (``Wsrf``, ``down_fast``, ``up_fast``, and dense
-        transfer matrices where a spec is None)."""
+        transfer matrices where a spec is None). ``warp_statics`` takes
+        the reference plan's ``resampling`` and ``backend``."""
         plan = cls.__new__(cls)
         dev = resolve_device(device)
         plan._fusion = FusedFusionPlan.from_state(state, statics, dev,
@@ -443,6 +511,9 @@ class FusedOrthoFusionPlan:
 
     def _load_warp(self, state: Dict, warp_statics: WarpStatics,
                    device: torch.device) -> None:
+        if warp_statics.backend not in WARP_BACKENDS:
+            raise ValueError(f"unknown warp backend "
+                             f"{warp_statics.backend!r}")
         self.device = device
         self.warp_statics = warp_statics
         self._flat_idx = torch.from_numpy(
@@ -477,7 +548,14 @@ class FusedOrthoFusionPlan:
         return orthowarp_two_pass(
             _as_f32(raw_hwb, self.device), self._flat_idx, self._valid,
             self._wr, self._wc, self._cstar,
-            method=self.warp_statics.resampling, fill=NO_DATA_VALUE)
+            method=self.warp_statics.resampling, fill=NO_DATA_VALUE,
+            backend=self.warp_statics.backend)
+
+    def ot_samples(self, utm_cube_hwb, s2_rgb10_hwb,
+                   generator: Optional[torch.Generator] = None):
+        """:meth:`FusedFusionPlan.ot_samples` from a call's
+        ``out["utm_cube"]``."""
+        return self._fusion.ot_samples(utm_cube_hwb, s2_rgb10_hwb, generator)
 
     def s2_reference_10m(self, utm_cube_hwb, s2_rgb10_hwb) -> torch.Tensor:
         """Audit target from a call's ``out["utm_cube"]`` and the same

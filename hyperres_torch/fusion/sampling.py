@@ -1,17 +1,38 @@
-"""Fixed-shape masked pixel sampling for the fusion fit
-(``hyperres/fusion/sampling.py:39``).
+"""Masked pixel sampling for the fusion fits
+(``hyperres/fusion/sampling.py``).
 
-Gumbel top-k: a uniform sample without replacement among the valid
-pixels, of a fixed size. The noise comes from an explicit
-``torch.Generator`` (its stream differs from ``jax.random``'s, so tests
-inject the same NumPy noise into both packages through ``noise=``).
+- :func:`sample_valid_pixels_host` (``:20-36``): the reference's NumPy
+  sampler, copied because the reference module imports jax. The same
+  generator gives the same samples in both packages.
+- :func:`sample_valid_pixels_device` (``:39``): Gumbel top-k, a uniform
+  sample without replacement among the valid pixels, of a fixed size.
+  The noise comes from an explicit ``torch.Generator`` (its stream
+  differs from ``jax.random``'s, so tests inject the same NumPy noise
+  into both packages through ``noise=``).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+
+def sample_valid_pixels_host(img: np.ndarray, mask: np.ndarray,
+                             n_samples: int, seed: int = 0,
+                             rng: Optional[np.random.Generator] = None
+                             ) -> np.ndarray:
+    """(H, W, C) + (H, W) mask -> (ns, C) float64 sample, reference
+    semantics: flatten masked pixels, drop non-finite rows, sample
+    without replacement (color.py:80-95)."""
+    rng = rng or np.random.default_rng(seed)
+    X_all = img[mask].reshape(-1, img.shape[-1]).astype(np.float64)
+    X_all = X_all[np.isfinite(X_all).all(axis=1)]
+    if X_all.shape[0] == 0:
+        return X_all
+    ns = min(n_samples, X_all.shape[0])
+    return X_all[rng.choice(X_all.shape[0], size=ns, replace=False)]
 
 
 def gumbel_noise(n: int, generator: torch.Generator,

@@ -21,6 +21,25 @@ On a CUDA tensor the wrapper launches the hand-written kernel
 ``csrc/scanline_warp.cu`` (or raises); on a CPU tensor it runs
 :func:`scanline_resample_reference`, the plain PyTorch version, which
 evaluates the same at most four taps with ``torch.gather``.
+
+``scanline_resample_dense(src (N, S, C), pos (N, D))`` is the dense
+route, the counterpart of ``pallas_scanline_resample``
+(``pallas_ops.py:189``) behind ``orthowarp_two_pass(backend="pallas")``:
+
+    out[n, d, c] = sum_{s in [0, S)} k(pos[n, d] - s) * src[n, s, c]
+
+and, with ``axis=0``, the same sum along axis 0 of a pass-2 ``src``
+(S, M, C), which the reference computes on transposed copies. On a CUDA
+tensor it makes the same launches as :func:`scanline_resample` (``k``
+vanishes outside the kernel's four taps, so the kernel computes this
+full-axis sum exactly for finite ``src``), counted under the dense
+route's own name. Its plain version,
+:func:`scanline_resample_dense_reference`, is the reference kernel's own
+math: the weight rows ``W = k(pos - iota_S)`` times ``src``, in row
+chunks. For a non-finite ``src`` the two differ: the dense product makes
+the whole output row of that channel non-finite (0 * NaN), the taps only
+the outputs that read it. Precision ``"high"`` and ``"highest"`` both
+compute exact f32; ``"default"`` (1-pass bf16) is not ported.
 """
 
 from __future__ import annotations
@@ -34,7 +53,11 @@ from .host import cubic_kernel_weight
 
 #: launch-counter names, by contraction axis
 KERNEL_NAMES = {1: "scanline_resample_pass1", 0: "scanline_resample_pass2"}
+#: launch-counter name of the dense route
+DENSE_KERNEL_NAME = "scanline_resample_dense"
 _METHODS = ("cubic", "bilinear")
+#: largest weight block (elements) of the dense plain version
+_DENSE_W_ELEMS = 1 << 26
 
 
 def _profile(dist: torch.Tensor, method: str) -> torch.Tensor:
@@ -97,18 +120,17 @@ def scanline_resample_reference(src: torch.Tensor, pos: torch.Tensor,
     return out
 
 
-def scanline_resample(src: torch.Tensor, pos: torch.Tensor, axis: int,
-                      method: str = "cubic") -> torch.Tensor:
-    """One scanline-resample pass (see the module docstring). CUDA
-    tensors go through the hand-written kernel, CPU tensors through
-    :func:`scanline_resample_reference`."""
+def _launch(src: torch.Tensor, pos: torch.Tensor, axis: int,
+            method: str, name: str) -> torch.Tensor:
+    """Launch ``csrc/scanline_warp.cu`` for one pass over CUDA tensors:
+    ``src`` is read through its own strides (unit channel stride), the
+    (P, Q, C) result is contiguous. Counts one launch of ``name``."""
     p, q, c, s = _check(src, pos, axis, method)
-    if src.device.type == "cpu":
-        return scanline_resample_reference(src, pos, axis, method)
     if src.device.type != "cuda":
         raise ValueError(f"no scanline kernel for device {src.device}")
-    if not (src.is_contiguous() and pos.is_contiguous()):
-        raise ValueError("scanline_resample needs contiguous src and pos")
+    if src.stride(2) != 1 or not pos.is_contiguous():
+        raise ValueError("the scanline kernel needs a unit channel stride "
+                         "in src and a contiguous pos")
     from ._build import load_library
 
     lib = load_library("scanline_warp")
@@ -117,9 +139,9 @@ def scanline_resample(src: torch.Tensor, pos: torch.Tensor, axis: int,
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     if axis == 1:
-        sp, sq, ss = s * c, 0, c
+        sp, sq, ss = src.stride(0), 0, src.stride(1)
     else:
-        sp, sq, ss = 0, c, q * c
+        sp, sq, ss = 0, src.stride(1), src.stride(0)
     out = torch.empty((p, q, c), dtype=torch.float32, device=src.device)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
@@ -128,5 +150,69 @@ def scanline_resample(src: torch.Tensor, pos: torch.Tensor, axis: int,
     if rc != 0:
         raise RuntimeError(f"scanline_resample kernel launch failed: CUDA "
                            f"error {rc}")
-    count_launch(KERNEL_NAMES[axis])
+    count_launch(name)
     return out
+
+
+def scanline_resample(src: torch.Tensor, pos: torch.Tensor, axis: int,
+                      method: str = "cubic") -> torch.Tensor:
+    """One scanline-resample pass (see the module docstring). CUDA
+    tensors go through the hand-written kernel, CPU tensors through
+    :func:`scanline_resample_reference`."""
+    if src.device.type == "cpu":
+        return scanline_resample_reference(src, pos, axis, method)
+    return _launch(src, pos, axis, method, KERNEL_NAMES[axis])
+
+
+def check_precision(precision: str) -> None:
+    """The ported precisions: ``"high"`` and ``"highest"``, both exact
+    f32. ``"default"`` (1-pass bf16) is not ported."""
+    if precision == "default":
+        raise NotImplementedError(
+            "precision 'default' (1-pass bf16) is not ported; 'high' and "
+            "'highest' both compute exact f32")
+    if precision not in ("high", "highest"):
+        raise ValueError(f"Unknown precision {precision!r}")
+
+
+def scanline_resample_dense_reference(src: torch.Tensor, pos: torch.Tensor,
+                                      method: str = "cubic",
+                                      precision: str = "high",
+                                      axis: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of the dense route: per source row the
+    weight matrix ``W = k(pos[n, :, None] - iota_S)`` (D, S) times
+    ``src[n]`` (S, C), in f32, for as many rows at a time as keep a
+    weight block under 2**26 elements. ``axis=0`` computes the same on
+    contiguous transposed copies, as the reference warp does, and
+    returns the contiguous (D, M, C) result."""
+    _check(src, pos, axis, method)
+    check_precision(precision)
+    if axis == 0:
+        return scanline_resample_dense_reference(
+            src.transpose(0, 1).contiguous(), pos.T, method, precision
+        ).transpose(0, 1).contiguous()
+    n, s = src.shape[:2]
+    d = pos.shape[1]
+    out = torch.empty((n, d, src.shape[2]), dtype=torch.float32,
+                      device=src.device)
+    iota = torch.arange(s, dtype=torch.float32, device=src.device)
+    rows = max(1, _DENSE_W_ELEMS // max(1, d * s))
+    for i in range(0, n, rows):
+        W = _profile(pos[i:i + rows, :, None] - iota, method)
+        out[i:i + rows] = torch.bmm(W, src[i:i + rows])
+    return out
+
+
+def scanline_resample_dense(src: torch.Tensor, pos: torch.Tensor,
+                            method: str = "cubic", precision: str = "high",
+                            axis: int = 1) -> torch.Tensor:
+    """The dense scanline resample (see the module docstring): src
+    (N, S, C), pos (N, D) -> (N, D, C), or with ``axis=0`` src (S, M, C),
+    pos (D, M) -> (D, M, C). CUDA tensors go through the hand-written
+    kernel (``src`` through its strides, unit channel stride), CPU
+    tensors through :func:`scanline_resample_dense_reference`."""
+    check_precision(precision)
+    if src.device.type == "cpu":
+        return scanline_resample_dense_reference(src, pos, method,
+                                                 precision, axis)
+    return _launch(src, pos, axis, method, DENSE_KERNEL_NAME)

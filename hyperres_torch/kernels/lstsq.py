@@ -5,6 +5,8 @@
   semantics, coefficients highest power first. The fit is QR plus a
   triangular solve in f32 (not the normal equations), so degree-4
   Vandermonde systems stay well conditioned.
+- The affine fit (``:99-105``) by an SVD least squares that follows
+  ``jnp.linalg.lstsq``.
 - Multivariate monomial expansion (``:166``) as ``degree`` gathered
   column products, over the factor table of
   :func:`~hyperres_torch.kernels.host.poly_factor_indices`.
@@ -66,6 +68,40 @@ def polyval_channels(coeffs: torch.Tensor, img: torch.Tensor
     """coeffs (C, deg+1), img (..., C) -> (..., C)."""
     return torch.stack([polyval(coeffs[c], img[..., c])
                         for c in range(img.shape[-1])], dim=-1)
+
+
+def lstsq(A: torch.Tensor, B: torch.Tensor,
+          rcond: Optional[float] = None) -> torch.Tensor:
+    """Least squares ``A X ~ B`` by SVD, as ``jnp.linalg.lstsq``:
+    singular values that are zero or below ``rcond * s_max`` (default
+    ``eps * max(A.shape)``) are dropped, so a rank-deficient ``A`` gives
+    the finite minimum-norm solution on every device
+    (``torch.linalg.lstsq`` on CUDA is ``gels``, which assumes full
+    rank)."""
+    if rcond is None:
+        rcond = torch.finfo(A.dtype).eps * max(A.shape)
+    U, S, Vh = torch.linalg.svd(A, full_matrices=False)
+    keep = (S > 0) & (S >= rcond * S[0])
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, S, torch.ones_like(S)),
+                        torch.zeros_like(S))
+    return Vh.T @ (s_inv[:, None] * (U.T @ B))
+
+
+def affine_fit(X: torch.Tensor, Y: torch.Tensor,
+               w: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Least-squares affine map ``Y ~ X @ A + t`` -> (A (d, d), t (d,))
+    through the augmented system (``lstsq.py:99-105``). ``w`` are 0/1 row
+    weights that exclude padded sample slots (``fused.py:113-124``)."""
+    n = X.shape[0]
+    Xa = torch.cat([X, torch.ones((n, 1), dtype=X.dtype, device=X.device)],
+                   dim=1)
+    if w is not None:
+        sw = torch.sqrt(torch.clamp(w.to(X.dtype), min=0.0))[:, None]
+        Xa = Xa * sw
+        Y = Y * sw
+    W = lstsq(Xa, Y)
+    return W[:-1, :], W[-1, :]
 
 
 def poly_expand(X: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:

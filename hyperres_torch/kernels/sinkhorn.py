@@ -1,11 +1,16 @@
 """Entropic optimal transport, log-domain Sinkhorn
 (``hyperres/kernels/sinkhorn.py:25-169``).
 
-Plain PyTorch: the reference runs this path in XLA (its Pallas engine,
-``engine="pallas"``, is not on the fused plan's path and is not ported
-yet). Stopping rule as the reference's ``sinkhorn_log``: every
-``check_every`` iterations the column-marginal L1 violation after the
-g-update is compared with ``stop_thr``, up to ``num_itermax``.
+Two engines, as in the reference's ``ot_barycentric_targets``:
+
+- ``"xla"`` (and ``"auto"``, the default): :func:`sinkhorn_log` in plain
+  PyTorch. Stopping rule as the reference's ``sinkhorn_log``: every
+  ``check_every`` iterations the column-marginal L1 violation after the
+  g-update is compared with ``stop_thr``, up to ``num_itermax``.
+- ``"pallas"``: the hand-written duals kernel
+  (:mod:`.sinkhorn_duals`), which stops on the row marginal of the
+  previous iterate, where the padded cost matrix fits the reference's
+  budget; larger shapes take ``"xla"``.
 """
 
 from __future__ import annotations
@@ -13,6 +18,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from . import sinkhorn_duals as _duals
+
+ENGINES = ("auto", "xla", "pallas")
 
 
 def sqeuclidean_cdist(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
@@ -57,12 +66,18 @@ def barycentric_map(P: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     return (P @ Y) / row_sum
 
 
-def _marginal(w: Optional[torch.Tensor], n: int,
-              device: torch.device) -> torch.Tensor:
+def marginal(w: Optional[torch.Tensor], n: int,
+             device: torch.device) -> torch.Tensor:
+    """The OT marginal of n sample slots: uniform, or the 0/1 slot
+    weights ``w`` floored at 1e-12 and normalised."""
     if w is None:
         return torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
     aw = torch.clamp(w.to(torch.float32), min=1e-12)
     return aw / torch.sum(aw)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def ot_barycentric_targets(X: torch.Tensor, Y: torch.Tensor,
@@ -70,20 +85,38 @@ def ot_barycentric_targets(X: torch.Tensor, Y: torch.Tensor,
                            stop_thr: float = 1e-6,
                            wx: Optional[torch.Tensor] = None,
                            wy: Optional[torch.Tensor] = None,
+                           engine: str = "auto",
                            debias: bool = False) -> torch.Tensor:
     """Sinkhorn between samples X (n, d) and Y (m, d), then the
     barycentric target of each X row. ``wx``/``wy`` are optional 0/1
     slot weights from the fixed-shape sampler: zero-weight rows get a
-    vanishing mass and their values are zeroed. ``debias=True`` adds
-    the self-transport correction T_XY(x) + (x - T_XX(x))."""
+    vanishing mass and their values are zeroed. ``engine`` picks the
+    Sinkhorn (module docstring): ``"pallas"`` takes the duals kernel
+    when ``round_up(n, 128) * round_up(m, 128) * 4`` bytes fit
+    ``PALLAS_SINKHORN_VMEM_BUDGET`` (the reference's rule, by shape
+    alone) and builds ``P = exp(Mr + f + g)`` from its duals.
+    ``debias=True`` adds the self-transport correction
+    T_XY(x) + (x - T_XX(x)), whose Sinkhorn is always ``sinkhorn_log``."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r} (one of {ENGINES})")
     if wx is not None:
         X = torch.where(wx[:, None] > 0, X, torch.zeros((), device=X.device))
     if wy is not None:
         Y = torch.where(wy[:, None] > 0, Y, torch.zeros((), device=Y.device))
-    a = _marginal(wx, X.shape[0], X.device)
-    b = _marginal(wy, Y.shape[0], Y.device)
-    P, _ = sinkhorn_log(a, b, sqeuclidean_cdist(X, Y), reg,
-                        num_itermax=num_itermax, stop_thr=stop_thr)
+    a = marginal(wx, X.shape[0], X.device)
+    b = marginal(wy, Y.shape[0], Y.device)
+    M = sqeuclidean_cdist(X, Y)
+    n, m = M.shape
+    if (engine == "pallas" and _round_up(n, 128) * _round_up(m, 128) * 4
+            <= _duals.PALLAS_SINKHORN_VMEM_BUDGET):
+        Mr = -M / reg
+        f, g, _ = _duals.sinkhorn_duals(torch.log(a), torch.log(b), Mr,
+                                        num_itermax=num_itermax,
+                                        stop_thr=stop_thr)
+        P = torch.exp(Mr + f[:, None] + g[None, :])
+    else:
+        P, _ = sinkhorn_log(a, b, M, reg, num_itermax=num_itermax,
+                            stop_thr=stop_thr)
     T_xy = barycentric_map(P, Y)
     if not debias:
         return T_xy

@@ -2,7 +2,8 @@
 
 - :func:`orthowarp_two_pass`: fused GLT gather + two-pass scanline warp
   onto the S2-anchored UTM grid (``warp.py:837-931``), both passes in
-  the hand-written scanline kernel (:mod:`.banded`).
+  the hand-written scanline kernel (:mod:`.banded`), by the banded route
+  or, with ``backend="pallas"``, the dense route.
 - :func:`separable_resample_fast`: the integer-aligned same-CRS grid
   transfers (10 m -> 60 m box average, 60 m -> 10 m bilinear) as
   reshape block sums and phase-cycled lerps (``warp.py:449-618``), in
@@ -24,7 +25,9 @@ import torch.nn.functional as F
 
 from hyperres.core.constants import NO_DATA_VALUE
 
-from .banded import scanline_resample
+from .banded import (
+    check_precision, scanline_resample, scanline_resample_dense,
+)
 from .glt import glt_take
 
 
@@ -47,11 +50,17 @@ def orthowarp_src_ext(raw: torch.Tensor, glt_flat_idx: torch.Tensor,
     return torch.cat([v * valid, valid], dim=-1)
 
 
+#: ``orthowarp_two_pass`` backends, by the reference's names
+WARP_BACKENDS = ("auto", "xla", "pallas", "pallas_banded")
+
+
 def orthowarp_two_pass(raw: torch.Tensor, glt_flat_idx: torch.Tensor,
                        glt_valid: torch.Tensor, rows: torch.Tensor,
                        cols: torch.Tensor, cstar: torch.Tensor,
                        method: str = "cubic",
-                       fill: float = NO_DATA_VALUE) -> torch.Tensor:
+                       fill: float = NO_DATA_VALUE,
+                       precision: str = "high",
+                       backend: str = "auto") -> torch.Tensor:
     """Two-pass (Catmull-Smith scanline) fused GLT + warp.
 
     raw (h, w, B) f32; glt_flat_idx/glt_valid (Ho, Wo) from
@@ -61,14 +70,31 @@ def orthowarp_two_pass(raw: torch.Tensor, glt_flat_idx: torch.Tensor,
     the columns of pass 1's output at ``rows``; the validity channel is
     carried through both so one division renormalises nodata, and a
     destination whose centre leaves the source is ``fill``. Returns
-    (Hd, Wd, B). Equals the reference's ``precision="highest"`` result to
-    f32 rounding."""
+    (Hd, Wd, B).
+
+    ``backend``: ``"auto"``, ``"xla"`` and ``"pallas_banded"`` take the
+    banded route; ``"pallas"`` the dense route of
+    ``pallas_scanline_resample`` for both passes (``warp.py:895-904``),
+    whose pass 2 reads pass 1's natural layout where the reference
+    transposes. Both routes make the same kernel launches, each counted
+    under its route's name. ``precision`` ``"high"`` and ``"highest"``
+    both compute exact f32, equal to the reference's ``"highest"`` result
+    to f32 rounding; ``"default"`` is not ported."""
+    if backend not in WARP_BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (one of "
+                         f"{WARP_BACKENDS})")
+    check_precision(precision)
     b = raw.shape[-1]
     ho, wo = glt_flat_idx.shape
     src_ext = orthowarp_src_ext(raw, glt_flat_idx, glt_valid)
-    h = scanline_resample(src_ext, cstar, axis=1, method=method)
-    del src_ext
-    out_ext = scanline_resample(h, rows, axis=0, method=method)
+    if backend == "pallas":
+        h = scanline_resample_dense(src_ext, cstar, method, precision)
+        del src_ext
+        out_ext = scanline_resample_dense(h, rows, method, precision, axis=0)
+    else:
+        h = scanline_resample(src_ext, cstar, axis=1, method=method)
+        del src_ext
+        out_ext = scanline_resample(h, rows, axis=0, method=method)
     del h
     centre_in = ((rows >= -0.5) & (rows <= ho - 0.5)
                  & (cols >= -0.5) & (cols <= wo - 0.5))[..., None]

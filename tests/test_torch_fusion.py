@@ -18,6 +18,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import jax.numpy as jnp  # noqa: E402
 import chip_smoke  # noqa: E402
 from hyperres.core.config import OTConfig, PolyFusionConfig  # noqa: E402
+from hyperres.fusion.fused import FusedFusionPlan as JaxFusionPlan  # noqa: E402
 from hyperres.fusion.fused import FusedOrthoFusionPlan as JaxPlan  # noqa: E402
 from hyperres.kernels import lstsq as jlstsq  # noqa: E402
 from hyperres.kernels import sinkhorn as jsink  # noqa: E402
@@ -303,18 +304,31 @@ def test_slice_audit_target(slice_run):
     np.testing.assert_allclose(a, b, rtol=0, atol=2e-6)
 
 
+def _jax_state(jplan):
+    f = jplan._fusion
+    return {"flat_idx": np.asarray(jplan._flat),
+            "valid": np.asarray(jplan._valid),
+            "wr": np.asarray(jplan._wr), "wc": np.asarray(jplan._wc),
+            "cstar": np.asarray(jplan._cstar),
+            "Wsrf": np.asarray(f._Wsrf),
+            "down_fast": jplan.statics.down_fast,
+            "up_fast": jplan.statics.up_fast}
+
+
+def _plan_args(sc):
+    return (sc["ortho_grid"], sc["utm60"], sc["s2_grid"],
+            sc["raw"].shape[:2], sc["glt"], sc["wavelengths"],
+            sc["good_mask"])
+
+
 def test_plan_from_jax_state(slice_run):
     """A port plan built from the reference plan's arrays computes
-    exactly what the natively built port plan computes."""
+    exactly what the natively built port plan computes; so does one
+    from a reference plan built with ``warp_kernel="pallas"``, whose
+    ``WarpStatics.backend`` carries across and selects the dense
+    route."""
     jplan, tplan = slice_run["jplan"], slice_run["tplan"]
-    f = jplan._fusion
-    state = {"flat_idx": np.asarray(jplan._flat),
-             "valid": np.asarray(jplan._valid),
-             "wr": np.asarray(jplan._wr), "wc": np.asarray(jplan._wc),
-             "cstar": np.asarray(jplan._cstar),
-             "Wsrf": np.asarray(f._Wsrf),
-             "down_fast": jplan.statics.down_fast,
-             "up_fast": jplan.statics.up_fast}
+    state = _jax_state(jplan)
     native = tplan.state_dict_numpy()
     assert set(native) == set(state)
     for k, v in state.items():
@@ -328,6 +342,99 @@ def test_plan_from_jax_state(slice_run):
         torch.testing.assert_close(out[k], v, rtol=0, atol=0,
                                    equal_nan=True, msg=k)
 
+    sc = slice_run["scene"]
+    kw = dict(s2_nodata=65535.0, s2_scale=1e-4, config=CFG,
+              srf=builtin_srf("S2A", bands=["B2", "B3", "B4"]))
+    jdense = JaxPlan(*_plan_args(sc), warp_kernel="pallas", **kw)
+    jw = jdense.warp_statics
+    assert jw.backend == "pallas"
+    tdense = tfused.FusedOrthoFusionPlan(*_plan_args(sc),
+                                         warp_kernel="pallas", **kw)
+    plan = tfused.FusedOrthoFusionPlan.from_state(
+        _jax_state(jdense), tplan.statics,
+        warp_statics=tfused.WarpStatics(jw.resampling, jw.backend))
+    assert plan.warp_statics == tdense.warp_statics
+    out = plan(sc["raw"], slice_run["ts2"])
+    for k, v in tdense(sc["raw"], slice_run["ts2"]).items():
+        torch.testing.assert_close(out[k], v, rtol=0, atol=0,
+                                   equal_nan=True, msg=k)
+
+
+def test_plan_warp_kernels(slice_run):
+    """``warp_kernel="pallas"`` (the dense route) gives the default
+    plan's utm_cube to 1e-5 with the same fill pixels (the dense and the
+    tap sums agree to f32 rounding); ``"pallas_banded"`` is the default
+    banded route, bit for bit. A bad backend in carried-over statics
+    raises."""
+    sc = slice_run["scene"]
+    kw = dict(s2_nodata=65535.0, s2_scale=1e-4, config=CFG,
+              srf=builtin_srf("S2A", bands=["B2", "B3", "B4"]))
+    base = slice_run["tout"]["utm_cube"]
+    for wk, backend in (("pallas", "pallas"),
+                        ("pallas_banded", "pallas_banded")):
+        plan = tfused.FusedOrthoFusionPlan(*_plan_args(sc), warp_kernel=wk,
+                                           **kw)
+        assert plan.warp_statics.backend == backend
+        u = plan.warp(sc["raw"])
+        assert torch.equal(u == -9999.0, base == -9999.0)
+        atol = 1e-5 if wk == "pallas" else 0.0
+        torch.testing.assert_close(u, base, rtol=0, atol=atol)
+    with pytest.raises(ValueError, match="backend"):
+        tfused.FusedOrthoFusionPlan.from_state(
+            slice_run["tplan"].state_dict_numpy(),
+            slice_run["tplan"].statics,
+            warp_statics=tfused.WarpStatics("cubic", "taploop"))
+
+
+@pytest.fixture(scope="module")
+def affine_run(slice_run):
+    """Both packages' fusion plans with ``fusion_method="ot_affine"`` on
+    their own slice utm_cube (equal to 1e-5) and the same S2 input."""
+    sc = slice_run["scene"]
+    args = (sc["utm60"], sc["s2_grid"], sc["wavelengths"], sc["good_mask"])
+    kw = dict(fusion_method="ot_affine", s2_nodata=65535.0, s2_scale=1e-4,
+              config=CFG, srf=builtin_srf("S2A", bands=["B2", "B3", "B4"]))
+    jout = JaxFusionPlan(*args, **kw)(slice_run["jout"]["utm_cube"],
+                                      slice_run["js2"])
+    tplan = tfused.FusedFusionPlan(*args, **kw)
+    tout = tplan(slice_run["tout"]["utm_cube"], slice_run["ts2"])
+    return dict(jout={k: np.asarray(v) for k, v in jout.items()},
+                tout=tout, tplan=tplan)
+
+
+def test_slice_ot_affine_statistically_equal(affine_run):
+    """``ot_affine``: the (C+1, C) affine parameters (A over t), and the
+    fused product. The packages draw their OT samples from different
+    random streams, so the products agree statistically, as for
+    ``ot_poly``: PSNR > 35 dB for the 10 m products and for the 60 m
+    matched pixels, identical finite masks, values in [0, 1]."""
+    from hyperres.pipeline import psnr
+
+    j, t = affine_run["jout"], affine_run["tout"]
+    assert t["coeffs"].shape == j["coeffs"].shape == (4, 3)
+    fa, fb = t["fused_10m"].numpy(), j["fused_10m"]
+    va, vb = np.isfinite(fa).all(-1), np.isfinite(fb).all(-1)
+    np.testing.assert_array_equal(va, vb)
+    assert psnr(fa[va], fb[vb]) > 35.0
+    assert np.nanmax(fa) <= 1.0 and np.nanmin(fa) >= 0.0
+    ma, mb = t["matched_60m"].numpy(), j["matched_60m"]
+    ok = np.isfinite(ma).all(-1) & np.isfinite(mb).all(-1)
+    assert ok.mean() > 0.5
+    assert psnr(ma[ok], mb[ok]) > 35.0
+    assert ma[ok].max() <= 1.0 and ma[ok].min() >= 0.0
+
+
+def test_ot_affine_identity_fallback(slice_run, affine_run):
+    """Under 2 valid 60 m pixels the affine parameters are the identity
+    over a zero translation, exactly, whatever the rank-deficient fit
+    gave."""
+    cube = np.full(slice_run["jout"]["utm_cube"].shape, np.nan, np.float32)
+    cube[5, 7] = slice_run["jout"]["utm_cube"][5, 7]
+    out = affine_run["tplan"](cube, slice_run["ts2"])
+    assert int(out["n_valid_60m"]) < 2
+    want = np.concatenate([np.eye(3), np.zeros((1, 3))]).astype(np.float32)
+    np.testing.assert_array_equal(out["coeffs"].numpy(), want)
+
 
 def test_plan_rejects_unported_configs(slice_run):
     sc = slice_run["scene"]
@@ -335,6 +442,8 @@ def test_plan_rejects_unported_configs(slice_run):
             sc["raw"].shape[:2], sc["glt"], sc["wavelengths"])
     with pytest.raises(tfused.FusedUnsupported):
         tfused.FusedOrthoFusionPlan(*args, fusion_method="linear")
+    with pytest.raises(tfused.FusedUnsupported):
+        tfused.FusedOrthoFusionPlan(*args, fusion_method="histogram")
     with pytest.raises(tfused.FusedUnsupported):
         tfused.FusedOrthoFusionPlan(*args, warp_kernel="taploop")
     with pytest.raises(tfused.FusedUnsupported):

@@ -34,7 +34,7 @@ def scene():
 
 
 def test_port_imports_without_jax():
-    """hyperres_torch, its plan, ridge-SR, kernel, entry and scene
+    """hyperres_torch, its plan, OT, ridge-SR, kernel, entry and scene
     modules and chip_smoke import in a process where importing jax
     raises."""
     code = textwrap.dedent("""
@@ -50,6 +50,8 @@ def test_port_imports_without_jax():
                   "hyperres_torch.kernels._build",
                   "hyperres_torch.fusion.ridge_sr",
                   "hyperres_torch.kernels.sr_predict",
+                  "hyperres_torch.kernels.sinkhorn_duals",
+                  "hyperres_torch.fusion.ot",
                   "hyperres_torch.entry",
                   "hyperres_torch.testing.bench_scene", "chip_smoke"):
             importlib.import_module(m)

@@ -1,9 +1,11 @@
 """The PyTorch port's warp against the JAX reference on the CPU: the
 scanline resample (the plain version of the hand-written CUDA kernel)
 against the dense two-pass warp and the banded Pallas kernels (in
-interpret mode), the fused GLT orthowarp, the grid transfers and the
-GLT gather. Inputs are made with NumPy from a seed and given to both.
-The kernel itself runs only on a CUDA device (marked ``gpu``)."""
+interpret mode), the dense route's plain version against
+``pallas_scanline_resample`` (in interpret mode), the fused GLT
+orthowarp by both routes, the grid transfers and the GLT gather. Inputs
+are made with NumPy from a seed and given to both. The kernel itself
+runs only on a CUDA device (marked ``gpu``)."""
 
 import sys
 from pathlib import Path
@@ -20,7 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from hyperres.kernels import glt as jglt  # noqa: E402
 from hyperres.kernels import warp as jwarp  # noqa: E402
 from hyperres.kernels.pallas_ops import (  # noqa: E402
-    banded_spans_ok, pallas_banded_two_pass,
+    banded_spans_ok, pallas_banded_two_pass, pallas_scanline_resample,
 )
 from hyperres_torch.device import launch_counts, reset_launch_counts  # noqa: E402
 from hyperres_torch.kernels import banded  # noqa: E402
@@ -149,6 +151,127 @@ def test_scanline_wrapper_validates():
         banded.scanline_resample(src, torch.zeros((4, 6)), 2)
 
 
+def _dense_case(rng, n=12, s=160, c=9, d=144):
+    """The shape of tests/test_pallas_ops.py:239, with positions that
+    run past both ends of the source axis and two padding positions."""
+    src = rng.random((n, s, c)).astype(np.float32)
+    pos = (np.linspace(-3.0, s + 2.0, d, dtype=np.float32)[None, :]
+           + rng.random((n, 1)).astype(np.float32))
+    pos[0, 5], pos[1, 7] = -1e6, 1e6
+    return src, pos
+
+
+@pytest.mark.parametrize("method", ["cubic", "bilinear"])
+@pytest.mark.parametrize("precision,atol", [("highest", 1e-5),
+                                            ("high", 1e-4)])
+def test_dense_reference_matches_pallas_scanline(precision, atol, method,
+                                                 rng):
+    """The dense route's plain version == pallas_scanline_resample in
+    interpret mode. At "highest" both are f32 dot products over the
+    whole axis, in another order: 1e-5. At "high" the reference splits
+    into bf16x3 (about 2**-16 relative, tests/test_pallas_ops.py:233)
+    while the port stays exact f32: 1e-4."""
+    src, pos = _dense_case(rng)
+    want = np.asarray(pallas_scanline_resample(
+        jnp.asarray(src), jnp.asarray(pos), method=method,
+        precision=precision))
+    got = banded.scanline_resample_dense(T(src), T(pos), method,
+                                         precision).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("method", ["cubic", "bilinear"])
+def test_dense_reference_equals_taps(method, rng):
+    """The full-axis dense sum == the <= 4-tap sum (what the kernel
+    computes) for finite src, to 1e-6 (zero weights add exact zeros; the
+    four live products are summed in another order); and ``axis=0`` on
+    the pass-2 layout, as the warp's pass 2 runs it, is exactly the
+    transpose of ``axis=1`` on the transposed operands."""
+    src, pos = _dense_case(rng)
+    taps = banded.scanline_resample_reference(T(src), T(pos), 1, method)
+    dense = banded.scanline_resample_dense(T(src), T(pos), method)
+    torch.testing.assert_close(dense, taps, rtol=0, atol=1e-6)
+    src_nat = T(np.ascontiguousarray(src.transpose(1, 0, 2)))
+    pos_nat = T(np.ascontiguousarray(pos.T))
+    got = banded.scanline_resample_dense(src_nat, pos_nat, method, axis=0)
+    assert got.shape == (pos.shape[1], pos.shape[0], src.shape[2])
+    assert got.is_contiguous()
+    torch.testing.assert_close(got, dense.transpose(0, 1), rtol=0, atol=0)
+
+
+def test_dense_nonfinite_src_poisons_rows(rng):
+    """A reference behaviour: for a NaN in src the dense contraction
+    (pallas_scanline_resample, and the dense plain version with it)
+    makes the whole output row of that channel NaN (0 * NaN = NaN),
+    while the tap evaluation of the CUDA kernel poisons only the outputs
+    whose live taps read the NaN sample (|pos - s| < 2)."""
+    src, pos = _dense_case(rng)
+    pos = pos[:, 10:-10]     # in range, no padding positions
+    n0, s0, c0 = 3, 80, 4
+    src[n0, s0, c0] = np.nan
+    want = np.asarray(pallas_scanline_resample(
+        jnp.asarray(src), jnp.asarray(pos), precision="highest"))
+    dense = banded.scanline_resample_dense(T(src), T(pos)).numpy()
+    taps = banded.scanline_resample_reference(T(src), T(pos), 1).numpy()
+    for out in (want, dense):
+        assert np.isnan(out[n0, :, c0]).all()
+        assert np.isfinite(np.delete(out, c0, axis=2)).all()
+    near = np.abs(pos[n0] - s0) < 2.0
+    assert 0 < near.sum() < near.size
+    np.testing.assert_array_equal(np.isnan(taps[n0, :, c0]), near)
+    assert np.isfinite(np.delete(taps, n0, axis=0)).all()
+
+
+def test_dense_precision_and_backend_checks():
+    src, pos = torch.zeros((2, 5, 3)), torch.zeros((2, 4))
+    with pytest.raises(NotImplementedError, match="default"):
+        banded.scanline_resample_dense(src, pos, precision="default")
+    with pytest.raises(ValueError, match="precision"):
+        banded.scanline_resample_dense(src, pos, precision="float64")
+    with pytest.raises(ValueError, match="axis"):
+        banded.scanline_resample_dense(src, pos, axis=2)
+    with pytest.raises(ValueError, match="pass 2"):
+        banded.scanline_resample_dense(src, pos, axis=0)
+    z = torch.zeros((4, 4))
+    with pytest.raises(ValueError, match="backend"):
+        twarp.orthowarp_two_pass(torch.zeros((4, 4, 2)),
+                                 torch.zeros((4, 4), dtype=torch.int64),
+                                 z > 0, z, z, z, backend="mxu")
+
+
+@pytest.mark.parametrize("method", ["cubic", "bilinear"])
+def test_orthowarp_two_pass_pallas_backend_matches_jax(method, rng):
+    """backend="pallas" (the dense route for both passes) == JAX
+    orthowarp_two_pass(backend="pallas", precision="highest") in
+    interpret mode, with the bounds of the banded route's test above:
+    identical fill masks, 1e-5 where the carried validity mass is
+    >= 0.5, 2e-4 of max(|v|, 1) at edge pixels; and == the port's own
+    banded route to 1e-5 with identical fill masks."""
+    raw, flat_idx, vmask = _glt_case(rng)
+    rows, cols, cstar = _geometry("glt_200x210")
+    want = np.asarray(jwarp.orthowarp_two_pass(
+        jnp.asarray(raw), jnp.asarray(flat_idx), jnp.asarray(vmask),
+        jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(cstar),
+        method=method, precision="highest", backend="pallas"))
+    args = (T(raw), T(flat_idx), T(vmask), T(rows), T(cols), T(cstar))
+    got = twarp.orthowarp_two_pass(*args, method=method,
+                                   backend="pallas").numpy()
+    banded_route = twarp.orthowarp_two_pass(*args, method=method).numpy()
+    fill_w = want == -9999.0
+    np.testing.assert_array_equal(got == -9999.0, fill_w)
+    np.testing.assert_array_equal(banded_route == -9999.0, fill_w)
+    ok = ~fill_w
+    mass = np.asarray(jwarp._two_pass_core(
+        jnp.asarray(vmask.astype(np.float32)[..., None]), jnp.asarray(rows),
+        jnp.asarray(cstar), method, 64, 64, jax.lax.Precision.HIGHEST))
+    inner = ok & (mass >= 0.5)
+    np.testing.assert_allclose(got[inner], want[inner], rtol=0, atol=1e-5)
+    err = np.abs(got[ok] - want[ok]) / np.maximum(np.abs(want[ok]), 1.0)
+    assert err.max() <= 2e-4
+    np.testing.assert_allclose(got[inner], banded_route[inner], rtol=0,
+                               atol=1e-5)
+
+
 def _spec_case(rng, nan_frac=0.05):
     """A 60 m <-> 10 m aligned pair from the bench geometry (6:1)."""
     from hyperres_torch.testing.bench_scene import generate_scene
@@ -267,5 +390,26 @@ def test_scanline_kernel_matches_plain_on_gpu(cuda_device, method, rng):
                              "scanline_resample_pass2": 1}
     h_ref = banded.scanline_resample_reference(src, cstar_d, 1, method)
     out_ref = banded.scanline_resample_reference(h, rows_d, 0, method)
+    torch.testing.assert_close(h, h_ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out, out_ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["cubic", "bilinear"])
+def test_dense_kernel_matches_plain_on_gpu(cuda_device, method, rng):
+    """The dense route on the card == its dense plain version, both
+    passes as the warp runs them (pass 2 on pass 1's natural layout), at
+    the warp's channel width (286), to 1e-5; one launch per pass under
+    the dense route's own counter."""
+    rows, _, cstar = _geometry("wide_150x600")
+    src = T(rng.random((150, 600, 286)).astype(np.float32)).to(cuda_device)
+    cstar_d, rows_d = T(cstar).to(cuda_device), T(rows).to(cuda_device)
+    reset_launch_counts()
+    h = banded.scanline_resample_dense(src, cstar_d, method)
+    out = banded.scanline_resample_dense(h, rows_d, method, axis=0)
+    assert launch_counts == {banded.DENSE_KERNEL_NAME: 2}
+    h_ref = banded.scanline_resample_dense_reference(src, cstar_d, method)
+    out_ref = banded.scanline_resample_dense_reference(h, rows_d, method,
+                                                       axis=0)
     torch.testing.assert_close(h, h_ref, rtol=0, atol=1e-5)
     torch.testing.assert_close(out, out_ref, rtol=0, atol=1e-5)
