@@ -9,10 +9,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 
 1. Device: needs ``torch.cuda.is_available()``; prints the
    ``nvidia-smi --query-gpu=name,power.limit`` line.
-2. Build: compiles the three kernels (``csrc/scanline_warp.cu``,
-   ``csrc/sr_predict.cu``, ``csrc/sinkhorn_duals.cu``) with nvcc for
+2. Build: compiles the five kernels (``csrc/scanline_warp.cu``,
+   ``csrc/sr_predict.cu``, ``csrc/sinkhorn_duals.cu``,
+   ``csrc/quantize_u16.cu``, ``csrc/srf_synthesize.cu``) with nvcc for
    sm_90a, one nvcc each, all started together, and prints the build
    times and ptxas reports.
+2a. The ingest's two hazards: PREFETCH_CHUNKS seeded slabs go through
+   ``PrefetchToDevice`` while the loader's side stream is held back
+   before each copy (so copies are still queued when the next batch is
+   pinned) and the consumer's stream is held back before it reads each
+   slab; the consumer allocates and frees a slab-sized tensor between
+   batches and drops each slab as soon as its read is queued. Every
+   slab must arrive bit-equal to its host array: a pinned buffer freed
+   before its copy, or a side-stream tensor not ``record_stream``'d (its
+   memory handed to a later copy), would show as a differing slab.
 3. Kernel vs plain: both banded passes of the scanline kernel against
    their plain PyTorch version on the scale-0.25 bench scene's warp
    operands, cubic and bilinear, within KERNEL_TOL; the dense route
@@ -54,16 +64,40 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 7. SR kernel vs plain: ``csrc/sr_predict.cu`` against its plain PyTorch
    version on a 1024 x 1024 px cube with a NaN and a nodata pixel, both
    layouts, By = 32 and By = 285: identical 65535 mask, <= SR_STEPS_TOL
-   u16 steps.
+   u16 steps; the row-major serving form timed at By = 285.
 8. SR main path at full scale: ``predict_cube_u16`` on a (10, 9140,
    9309) cube with a nodata stripe over the first 5 % of rows, once to
    warm up and N_RUNS times under CUDA events; checks the (32, 9140,
    9309) u16 product, that the stripe and nothing else is 65535, that
    every run launched the kernel, and the kernel against its plain
    version at that shape; times both.
+9. Ortho export path at full width: the port's ``make_scene`` writes an
+   uncompressed 1242 x 1280 x 285 granule into a temporary directory;
+   ``orthorectify_granule`` runs with ``OrthoConfig()`` (u16 streamed
+   ingest, plus the LOC product) and again with ``ingest_transfer="f32"``
+   (``overwrite=True``, same directory), onto a full S2 tile's grid.
+   Each run must launch each scanline pass once per 32-band chunk (9)
+   and the quantize kernel once per u16 product. The u16 run's decoded
+   DATA GeoTIFF must equal the quantizer's plain version on its cube;
+   the f32 fold must be bit-equal to one ``orthowarp_two_pass`` of the
+   whole raw cube (read through the port's reader); the u16 cube must
+   stay within CUBIC_ABS_GAIN * step_b / 2 + U16_INGEST_ATOL of the f32
+   one where every tap is valid (the max elsewhere is printed). Prints
+   each run's ``info["stages"]``, peak device memory and launches.
+10. Quantize kernel vs plain on that UTM cube: the reflectance form
+   (validity in the kernel, sentinel 65535), the Pallas form (scalar
+   lo/hi, a mask) and per-band OBS-like p1/p99 ranges (sentinel 0): no
+   code may differ. Kernel and plain timed in the reflectance form.
+11. SRF synthesis: ``srf_synthesize_auto(use_pallas=True)`` on the UTM
+   cube must launch the kernel; the kernel against its plain version at
+   S = 13 (S2A) and S = 3 (B2, B3, B4) with the valid-pixel mask, within
+   SRF_TOL and the fill exact; kernel, plain and ``torch.matmul`` timed.
 
 Prints the kernels' JSON line (the two banded passes, the dense route,
-``sr_predict_u16``, ``sinkhorn_duals``), then as its last line
+``sinkhorn_duals``, ``sr_predict_u16``, ``quantize_u16``,
+``srf_synthesize``; each with its launches, error, times, its bound on
+this card and a library call's time where one PyTorch call computes the
+same function), then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -73,9 +107,13 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
+
+T_START = time.perf_counter()
 
 MAIN_SCALE = 1.0
 CHECK_SCALE = 0.25
@@ -126,6 +164,42 @@ SR_SOURCE = "hyperres_torch/csrc/sr_predict.cu"
 SR_REPLACES = ("hyperres/kernels/pallas_ops.py:828 "
                "(pallas_sr_predict_u16_cmajor); "
                "hyperres/kernels/pallas_ops.py:725 (pallas_sr_predict_u16)")
+#: the ortho export path: an EMIT granule at its real raw size, every band
+ORTHO_RAW = (1242, 1280)
+ORTHO_BANDS = 285
+#: the S2 stack that make_scene writes is not read on this path; the grid
+#: passed instead is a full S2 tile (10980 px of 10 m, the stack's own
+#: 60 m lattice) centred on the swath, so the UTM grid is the swath's
+ORTHO_S2_SIZE = 600
+S2_TILE_PX = 10980
+#: the fold's chunks: ceil(285 / OrthoConfig().band_chunk)
+ORTHO_CHUNKS = 9
+#: the u16 ingest against the f32 one on pixels whose taps are all valid:
+#: each raw value moves by at most half a step (vmax_b - vmin_b) / 65534,
+#: and the two-pass cubic's weights sum in absolute value to at most 1.25
+#: per pass
+CUBIC_ABS_GAIN = 1.5625
+U16_INGEST_ATOL = 1e-6
+#: SRF kernel vs plain: the same f32 products summed in another order
+SRF_TOL = 1e-5
+REFL_HI_EFF = 6.5535        # export_reflectance_u16's hi for (0, 1) -> 0..10000
+QUANT_NAME = "quantize_u16"
+QUANT_SOURCE = "hyperres_torch/csrc/quantize_u16.cu"
+QUANT_REPLACES = "hyperres/kernels/pallas_ops.py:122 (pallas_quantize_u16)"
+SRF_SOURCE = "hyperres_torch/csrc/srf_synthesize.cu"
+SRF_REPLACES = "hyperres/kernels/pallas_ops.py:70 (pallas_srf_synthesize)"
+#: the ingest hazard stress: many small slabs; per batch the loader's side
+#: stream is held back ~0.5 ms and the consumer's ~2 ms (torch.cuda._sleep
+#: cycles at ~2 GHz), so the consumer's reads run far behind later copies
+PREFETCH_CHUNKS = 96
+PREFETCH_SLAB = (256, 256, 8)
+PREFETCH_DEPTH = 3
+PREFETCH_COPY_HOLD = 1_000_000
+PREFETCH_READ_HOLD = 4_000_000
+#: the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
+#: bytes/s and float32 FLOP/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def log(msg: str) -> None:
@@ -153,6 +227,22 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take for work that moves ``n_bytes``
+    and does ``flops`` float32 operations: the larger of the two over the
+    card's peaks, and which one it is."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def scanline_bound(src, pos, out_shape) -> dict:
+    """One scanline pass: its source and positions read once, its output
+    written once; 4 taps (one FMA each) per output element."""
+    n_out = float(np.prod(out_shape))
+    return bound(4.0 * (src.numel() + pos.numel() + n_out), 8.0 * n_out)
+
+
 def compare_passes(src_ext, cstar, rows, method: str, timed: bool) -> dict:
     """Both kernel passes against the plain version on the same inputs
     (pass 2 on the kernel's pass-1 output). Returns per pass name:
@@ -178,6 +268,7 @@ def compare_passes(src_ext, cstar, rows, method: str, timed: bool) -> dict:
             entry["plain_ms"] = cuda_ms(
                 lambda: scanline_resample_reference(src, pos, axis,
                                                     method), 3)
+            entry.update(scanline_bound(src, pos, got.shape))
         res[KERNEL_NAMES[axis]] = entry
         h = got
     return res
@@ -193,7 +284,7 @@ def compare_dense(src_ext, cstar, rows, method: str, timed: bool) -> dict:
         scanline_resample_dense, scanline_resample_dense_reference,
     )
 
-    res, h = {"max_abs_err": 0.0}, None
+    res, h = {"max_abs_err": 0.0, "bound_ms": 0.0}, None
     for axis, src, pos in ((1, src_ext, cstar), (0, None, rows)):
         src = h if src is None else src
         k = 2 - axis
@@ -210,6 +301,7 @@ def compare_dense(src_ext, cstar, rows, method: str, timed: bool) -> dict:
             res[f"pass{k}_plain_ms"] = cuda_ms(
                 lambda: scanline_resample_dense_reference(src, pos, method,
                                                           axis=axis), 2)
+            res["bound_ms"] += scanline_bound(src, pos, got.shape)["bound_ms"]
         h = got
     return res
 
@@ -280,7 +372,7 @@ def sr_phases(dev) -> dict:
     """Phases 6-8 (see the module docstring). Returns the SR kernel's
     entry of the kernels line."""
     import torch
-    from hyperres.core.config import RidgeSRConfig
+    from hyperres_torch.core.config import RidgeSRConfig
     from hyperres_torch.device import launch_counts, reset_launch_counts
     from hyperres_torch.entry import entry
     from hyperres_torch.fusion.ridge_sr import RidgeSpectralSR
@@ -344,7 +436,20 @@ def sr_phases(dev) -> dict:
                 fail(f"SR kernel disagrees with its plain version "
                      f"({layout}, By={m.n_outputs})")
             worst = max(worst, steps)
-    del Xc, got, want, fwd, x, y
+    # the row-major serving form at By = 285, timed
+    Xr = Xc.T.contiguous()
+    kw = {"valid": valid_pixels(Xr, SR_NODATA), "layout": "rowmajor"}
+    args = (fwd.x_mean, fwd.x_std, fwd.W, fwd.intercept, fwd.factors)
+    row_ms = cuda_ms(lambda: sr_predict_u16(Xr, *args, **kw), 10)
+    row_plain_ms = cuda_ms(lambda: sr_predict_u16_reference(Xr, *args, **kw),
+                           2)
+    row = bound(h * w * (4.0 * SR_BX + 1.0 + 2.0 * fwd.n_outputs),
+                2.0 * fwd.n_features * fwd.n_outputs * h * w)
+    log(f"SR row-major form ({h * w}, {SR_BX}) -> ({h * w}, "
+        f"{fwd.n_outputs}): kernel {row_ms:.3f} ms, plain "
+        f"{row_plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
+        f"({row['bound_by']})")
+    del Xc, Xr, got, want, fwd, x, y
 
     # -- 8. main SR path at full scale -------------------------------------
     t0 = time.perf_counter()
@@ -409,9 +514,14 @@ def sr_phases(dev) -> dict:
         X2, *args, nodata=SR_NODATA), 1)
     log(f"SR kernel at {SR_SHAPE} -> {expect}: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms")
+    # per pixel: Bx f32 read, By u16 written; F monomials times By outputs
+    # (one FMA each)
+    work = bound(n_px * (4.0 * SR_BX + 2.0 * SR_BY),
+                 2.0 * model.n_features * SR_BY * n_px)
     return {"name": KERNEL_NAME, "route": "cuda", "source": SR_SOURCE,
             "replaces": SR_REPLACES, "launches": counts[KERNEL_NAME],
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **work}
 
 
 def build_plan(scene: dict, device, **kw):
@@ -580,9 +690,333 @@ def sinkhorn_phase(Xs, wxs, Ys, wys, ot) -> dict:
         **kw), 3) for e in ("pallas", "xla")}
     log(f"ot_barycentric_targets with the stop rule: engine='pallas' "
         f"{e_ms['pallas']:.3f} ms, engine='xla' {e_ms['xla']:.3f} ms")
+    # a sweep updates f over Mr's rows, then g over its columns. The
+    # function needs one read of Mr per sweep (a block can keep its rows
+    # on chip, take the row update and add its column partials in the
+    # same pass) plus the f, g, a, b vectors; ~6 operations per element
+    # and update
+    per_sweep = bound(4.0 * n * m + 8.0 * (n + m), 12.0 * n * m)
     return {"name": KERNEL_NAME, "route": "cuda", "source": SINKHORN_SOURCE,
             "replaces": SINKHORN_REPLACES, "launches": launches,
-            "max_abs_err": p_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": p_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": per_sweep["bound_ms"] * ksw,
+            "bound_by": per_sweep["bound_by"], "library_ms": None}
+
+
+def prefetch_phase(dev) -> None:
+    """Phase 2a (see the module docstring)."""
+    import torch
+    from hyperres_torch.io.pipeline import PrefetchToDevice
+
+    rng = np.random.default_rng(7)
+    host = [rng.standard_normal(PREFETCH_SLAB, dtype=np.float32)
+            for _ in range(PREFETCH_CHUNKS)]
+    loader = None
+
+    def hold_copies(item):
+        # runs in the loader thread before the batch is pinned and its
+        # copy queued on the side stream: that copy waits behind a sleep
+        with torch.cuda.stream(loader._stream):
+            torch.cuda._sleep(PREFETCH_COPY_HOLD)
+        return item
+
+    loader = PrefetchToDevice(iter(host), depth=PREFETCH_DEPTH, device=dev,
+                              transform=hold_copies)
+    t0 = time.perf_counter()
+    got = []
+    for x in loader:
+        torch.cuda._sleep(PREFETCH_READ_HOLD)
+        got.append(x.clone())
+        del x
+        scratch = torch.full(PREFETCH_SLAB, float("nan"), device=dev)
+        del scratch
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    bad = [i for i, (g, h) in enumerate(zip(got, host))
+           if not np.array_equal(g.cpu().numpy(), h)]
+    log(f"ingest hazards: {len(got)} slabs {PREFETCH_SLAB} f32 through "
+        f"PrefetchToDevice (depth {PREFETCH_DEPTH}) with held-back copies "
+        f"and reads in {secs:.3f} s; {len(bad)} differ from their host "
+        f"arrays {bad[:8]}")
+    if len(got) != PREFETCH_CHUNKS or bad:
+        fail("PrefetchToDevice delivered slabs that differ from their host "
+             "arrays")
+
+
+def n_differ(a, b) -> int:
+    """Differing elements of two u16 tensors of one shape (compared as
+    int16 bit patterns: CUDA takes few operators on uint16)."""
+    import torch
+
+    return int((a.view(torch.int16) != b.view(torch.int16)).sum())
+
+
+def ortho_phase(dev, workdir) -> dict:
+    """Phase 9 (see the module docstring). Returns what the kernel phases
+    take from it: the f32 run's UTM cube on the card (``cube``), the
+    granule's wavelengths and good-band mask, and the u16 run's launch
+    counts."""
+    import torch
+    from hyperres_torch.core.config import OrthoConfig
+    from hyperres_torch.core.constants import NO_DATA_VALUE
+    from hyperres_torch.core.grid import Grid
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.io.granule import EmitGranule
+    from hyperres_torch.io.tiff import TiffReader
+    from hyperres_torch.kernels.banded import KERNEL_NAMES, scanline_resample
+    from hyperres_torch.kernels.host import (
+        prepare_glt, scanline_cstar, source_index_field,
+    )
+    from hyperres_torch.kernels.quantize import quantize_u16_reference
+    from hyperres_torch.kernels.warp import orthowarp_two_pass
+    from hyperres_torch.ortho.pipeline import orthorectify_granule
+    from hyperres_torch.testing.scenes import make_scene
+
+    t0 = time.perf_counter()
+    scene = make_scene(workdir / "scene", raw_shape=ORTHO_RAW,
+                       n_bands=ORTHO_BANDS, compress_granule=False,
+                       s2_size=ORTHO_S2_SIZE)
+    s2 = scene.s2_grid
+    cx, cy = scene.swath_center_utm
+    half = S2_TILE_PX * 10.0 / 2.0
+    tile = Grid(s2.crs, s2.x0 + 60.0 * round((cx - half - s2.x0) / 60.0),
+                s2.y0 + 60.0 * round((cy + half - s2.y0) / 60.0), 10.0,
+                10.0, S2_TILE_PX, S2_TILE_PX)
+    gran_gb = scene.emit_nc_path.stat().st_size / 1e9
+    log(f"ortho: granule {ORTHO_RAW + (ORTHO_BANDS,)} f32 uncompressed "
+        f"({gran_gb:.2f} GB) made in {time.perf_counter() - t0:.1f} s")
+
+    out_dir = workdir / "ortho"
+    runs = {}
+    for transfer in ("u16", "f32"):
+        # the u16 run also exports LOC (per-band lo/hi on the kernel); the
+        # f32 run overwrites the DATA products in the same directory
+        cfg = OrthoConfig(ingest_transfer=transfer,
+                          overwrite=transfer == "f32")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        # the default device: the card
+        res = orthorectify_granule(scene.emit_nc_path, out_dir, tile,
+                                   config=cfg, export_loc=transfer == "u16",
+                                   keep_device_cube=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(launch_counts)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        stages = {k: v["seconds"] for k, v in res.info["stages"].items()
+                  if "seconds" in v}
+        fold = res.info["stages"]["data_streamed_orthowarp"]
+        cube = res.device_cube
+        log(f"ortho {transfer} run: {secs:.3f} s; UTM cube "
+            f"{tuple(cube.shape)}; peak memory {peak_gb:.2f} GB; launches "
+            f"{counts}; stages (s) {stages}; granule reads in the fold "
+            f"{fold['read_seconds']} s")
+        # one launch per pass per chunk (and one for LOC); one quantize per
+        # u16 product: DATA, its diagnostic band (and LOC)
+        loc = int(transfer == "u16")
+        want_q = 2 + loc
+        for name in KERNEL_NAMES.values():
+            if counts.get(name, 0) != ORTHO_CHUNKS + loc:
+                fail(f"ortho {transfer} run: {name} launched "
+                     f"{counts.get(name, 0)} times, expected "
+                     f"{ORTHO_CHUNKS + loc}")
+        if counts.get(QUANT_NAME, 0) != want_q:
+            fail(f"ortho {transfer} run: {QUANT_NAME} launched "
+                 f"{counts.get(QUANT_NAME, 0)} times, expected {want_q}")
+        if cube.shape[-1] != ORTHO_BANDS or not bool(
+                torch.isfinite(cube).all()):
+            fail(f"ortho {transfer} run: the UTM cube is not a finite "
+                 f"{ORTHO_BANDS}-band cube")
+        if transfer == "u16":
+            # the u16 GeoTIFF, decoded, against the quantizer's plain
+            # version on the run's own cube
+            with TiffReader(res.info["outputs"]["data_utm_tif"]) as r:
+                q = r.read()
+            want = quantize_u16_reference(cube, 0.0, REFL_HI_EFF, None,
+                                          65535, nodata_src=NO_DATA_VALUE)
+            bad = int(np.count_nonzero(np.moveaxis(q, 0, -1)
+                                       != want.cpu().numpy()))
+            log(f"ortho u16 run: DATA GeoTIFF {q.shape} u16, {bad} codes "
+                f"differ from the plain quantizer on the run's cube")
+            if bad:
+                fail("the DATA GeoTIFF differs from the plain quantizer")
+            del q, want
+        runs[transfer] = (res, counts)
+
+    cube16 = runs["u16"][0].device_cube
+    cube32 = runs["f32"][0].device_cube
+    utm_grid = runs["f32"][0].utm_grid
+    with EmitGranule(scene.emit_nc_path) as g:
+        raw_np = g.read_cube()
+        flat, valid = prepare_glt(g.glt, (g.raw_height, g.raw_width))
+        rows, cols = source_index_field(g.ortho_grid, utm_grid)
+        cstar = scanline_cstar(rows, cols, g.ortho_grid.height)
+        wl, good = np.asarray(g.wavelengths), g.good_wavelengths
+
+    def on_dev(a):
+        return torch.from_numpy(a).to(dev)
+
+    raw = on_dev(raw_np)
+    del raw_np
+    flat, valid, rows, cols, cstar = map(on_dev, (flat, valid, rows, cols,
+                                                  cstar))
+    # the f32 fold against one warp of the whole cube
+    ref = orthowarp_two_pass(raw, flat, valid, rows, cols, cstar)
+    same = bool(torch.equal(ref, cube32))
+    log(f"ortho f32 fold ({ORTHO_CHUNKS} chunks) vs one orthowarp_two_pass "
+        f"of the whole raw cube: bit-equal {same}")
+    if not same:
+        fail(f"the f32 fold differs from the one-shot warp: max abs "
+             f"{float((ref - cube32).abs().max()):.3e}")
+    del ref
+    # the u16 ingest against the f32 one, where every tap is valid: the
+    # validity plane's warp (the weight mass) is 1 there
+    vplane = valid.to(torch.float32)[..., None]
+    mass = scanline_resample(scanline_resample(vplane, cstar, 1), rows,
+                             0)[..., 0]
+    full = ((mass - 1.0).abs() <= 1e-6) & (cube32[..., 0] != NO_DATA_VALUE)
+    ok = torch.isfinite(raw) & (raw != NO_DATA_VALUE)
+    vmin = torch.where(ok, raw, float("inf")).amin(dim=(0, 1)).double()
+    vmax = torch.where(ok, raw, float("-inf")).amax(dim=(0, 1)).double()
+    del raw, ok
+    step = (vmax - vmin) / 65534.0
+    lim = (CUBIC_ABS_GAIN * step / 2.0 + U16_INGEST_ATOL).float()
+    ratio = (cube16 - cube32).abs() / lim
+    same_fill = bool(torch.equal(cube16 == NO_DATA_VALUE,
+                                 cube32 == NO_DATA_VALUE))
+    worst_full = float(ratio[full].max())
+    worst_else = float(ratio[~full & (cube32[..., 0] != NO_DATA_VALUE)]
+                       .max())
+    log(f"ortho u16 vs f32 ingest: {int(full.sum())} px with every tap "
+        f"valid, max |d| {worst_full:.4f} of the bound "
+        f"{CUBIC_ABS_GAIN} * step_b / 2 + {U16_INGEST_ATOL:g} (step_b "
+        f"{float(step.min()):.3e}..{float(step.max()):.3e}); elsewhere "
+        f"{worst_else:.4f} of it; same fill pixels {same_fill}")
+    if not (worst_full <= 1.0 and same_fill):
+        fail("the u16 ingest departs from the f32 one beyond its bound")
+    del ratio, cube16, mass, full
+    return {"cube": cube32, "wavelengths": wl, "good": good,
+            "counts": runs["u16"][1]}
+
+
+def quantize_phase(cube, launches: int) -> dict:
+    """Phase 10: the quantize kernel against its plain version on the
+    ortho phase's UTM cube in three forms; timed in the reflectance form.
+    Returns the kernel's entry of the kernels line."""
+    import torch
+    from hyperres_torch.core.constants import NO_DATA_VALUE
+    from hyperres_torch.kernels.quantize import (
+        KERNEL_NAME, pallas_quantize_u16, quantize_u16,
+        quantize_u16_reference,
+    )
+    from hyperres_torch.kernels.stats import strided_band_minmax
+
+    x2 = cube.reshape(-1, cube.shape[-1])
+    valid = torch.isfinite(x2) & (x2 != NO_DATA_VALUE)
+    lo_b, hi_b = strided_band_minmax(cube, NO_DATA_VALUE)
+    hi_b = torch.where(hi_b <= lo_b, lo_b + 1e-6, hi_b)
+    refl = ((cube, 0.0, REFL_HI_EFF, None, 65535),
+            {"nodata_src": NO_DATA_VALUE})
+    cases = {
+        "reflectance (stats form, validity in the kernel, sentinel 65535)":
+            (quantize_u16, refl[0], refl[1]),
+        "pallas form (scalar lo/hi, a validity mask, sentinel 65535)":
+            (pallas_quantize_u16, (x2, 0.0, REFL_HI_EFF, valid, 65535), {}),
+        "OBS-like (per-band p1/p99 lo/hi, sentinel 0)":
+            (quantize_u16, (cube, lo_b, hi_b, None, 0),
+             {"nodata_src": NO_DATA_VALUE}),
+    }
+    for label, (fn, args, kw) in cases.items():
+        form = {"form": "pallas"} if fn is pallas_quantize_u16 else {}
+        got = fn(*args, **kw)
+        want = quantize_u16_reference(*args, **kw, **form)
+        bad = n_differ(got, want)
+        log(f"check quantize {label}: {bad} of {got.numel()} codes differ")
+        if bad:
+            fail(f"quantize_u16 disagrees with its plain version: {label}")
+        del got, want
+    ms = cuda_ms(lambda: quantize_u16(*refl[0], **refl[1]), 10)
+    plain_ms = cuda_ms(lambda: quantize_u16_reference(*refl[0], **refl[1]),
+                       2)
+    n = float(cube.numel())
+    work = bound(n * (4.0 + 2.0), 6.0 * n)   # f32 in, u16 out
+    log(f"quantize at {tuple(cube.shape)}: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {work['bound_ms']:.3f} ms "
+        f"({work['bound_by']})")
+    return {"name": KERNEL_NAME, "route": "cuda", "source": QUANT_SOURCE,
+            "replaces": QUANT_REPLACES, "launches": launches,
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **work}
+
+
+def srf_phase(cube, wavelengths, good) -> dict:
+    """Phase 11: ``srf_synthesize_auto(use_pallas=True)`` on the ortho
+    phase's UTM cube (S2A's 13 bands), which must launch the kernel;
+    then the kernel against its plain version at S = 13 and S = 3 with
+    the valid-pixel mask, and the kernel, its plain version and
+    ``torch.matmul`` timed. Returns the kernel's entry of the kernels
+    line (S = 13)."""
+    import torch
+    from hyperres_torch.core.constants import NO_DATA_VALUE
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.kernels.host import build_srf_weight_matrix
+    from hyperres_torch.kernels.srf import (
+        KERNEL_NAME, pallas_srf_synthesize, srf_synthesize_auto,
+        srf_synthesize_reference,
+    )
+    from hyperres_torch.spectral.srf_tables import builtin_srf
+
+    h, w, b = cube.shape
+    valid_hw = (cube != NO_DATA_VALUE).all(dim=-1)
+    flat, v = cube.reshape(-1, b), valid_hw.reshape(-1)
+    n, n_valid = flat.shape[0], int(v.sum())
+    entry = None
+    for bands in (None, ["B2", "B3", "B4"]):
+        W, names, _ = build_srf_weight_matrix(
+            wavelengths, builtin_srf("S2A", bands=bands), good)
+        Wt = torch.from_numpy(np.ascontiguousarray(W, np.float32)).to(
+            cube.device)
+        s = Wt.shape[1]
+        if bands is None:
+            reset_launch_counts()
+            out = srf_synthesize_auto(cube, Wt, valid_hw, use_pallas=True)
+            torch.cuda.synchronize()
+            launches = launch_counts.get(KERNEL_NAME, 0)
+            log(f"srf_synthesize_auto(use_pallas=True) on the UTM cube: "
+                f"{tuple(out.shape)}, launches {launches}")
+            if tuple(out.shape) != (h, w, s) or launches < 1:
+                fail("srf_synthesize_auto(use_pallas=True) did not run the "
+                     "kernel to an (H, W, S) cube")
+            del out
+        got = pallas_srf_synthesize(flat, Wt, v)
+        want = srf_synthesize_reference(flat, Wt, v)
+        err = float((got - want).abs().max())
+        fill_ok = bool(torch.equal(got[~v], want[~v])
+                       and bool((got[~v] == NO_DATA_VALUE).all()))
+        del got, want
+        ms = cuda_ms(lambda: pallas_srf_synthesize(flat, Wt, v), 10)
+        plain_ms = cuda_ms(lambda: srf_synthesize_reference(flat, Wt, v), 3)
+        library_ms = cuda_ms(lambda: torch.matmul(flat, Wt), 10)
+        # only the valid rows need reading: an invalid row's outputs are
+        # the fill
+        work = bound(4.0 * (n_valid * b + b * s + n * s) + n,
+                     2.0 * n_valid * b * s)
+        log(f"check SRF S={s} ({','.join(names)}): max abs err {err:.3e} "
+            f"(tol {SRF_TOL:g}), fill exact {fill_ok}; kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, torch.matmul {library_ms:.3f} ms, "
+            f"bound {work['bound_ms']:.3f} ms ({work['bound_by']}); "
+            f"{n_valid} of {n} rows valid")
+        if not (err <= SRF_TOL and fill_ok):
+            fail(f"srf_synthesize disagrees with its plain version at S={s}")
+        if entry is None:
+            entry = {"name": KERNEL_NAME, "route": "cuda",
+                     "source": SRF_SOURCE, "replaces": SRF_REPLACES,
+                     "launches": launches, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms, **work}
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return entry
 
 
 def main() -> None:
@@ -610,11 +1044,15 @@ def main() -> None:
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load_libraries(["scanline_warp", "sr_predict", "sinkhorn_duals"])
+    _build.load_libraries(["scanline_warp", "sr_predict", "sinkhorn_duals",
+                           "quantize_u16", "srf_synthesize"])
     log(f"build: all kernels in {time.perf_counter() - t0:.3f} s")
     for name, info in _build.build_info.items():
         log(f"build: {name}: nvcc {info['seconds']:.3f} s")
         log(info["ptxas"])
+
+    # -- 2a. the ingest's two hazards ----------------------------------------
+    prefetch_phase(dev)
 
     # -- 3. kernel vs plain at the scale-0.25 bench scene ------------------
     worst = {}
@@ -676,7 +1114,9 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": SCANLINE_SOURCE,
             "replaces": REPLACES[name], "launches": counts[name],
-            "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"]})
+            "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
 
     # -- 5a. the warp_kernel="pallas" plan: the dense route ---------------
     dplan = build_plan(scene, dev, warp_kernel="pallas")
@@ -713,7 +1153,9 @@ def main() -> None:
         "replaces": DENSE_REPLACES,
         "launches": counts[DENSE_KERNEL_NAME], "max_abs_err": err,
         "ms": dense["pass1_ms"] + dense["pass2_ms"],
-        "plain_ms": dense["pass1_plain_ms"] + dense["pass2_plain_ms"]})
+        "plain_ms": dense["pass1_plain_ms"] + dense["pass2_plain_ms"],
+        "bound_ms": dense["bound_ms"], "bound_by": "bytes",
+        "library_ms": None})
 
     # -- 5b. Sinkhorn at 5000 x 5000 on the plan's OT samples ------------
     utm_cube = plan.warp(raw)
@@ -732,6 +1174,17 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     kernels.append(sr_phases(dev))
+    torch.cuda.empty_cache()
+
+    # -- 9-11. the ortho export path and its two kernels ------------------
+    with tempfile.TemporaryDirectory() as d:
+        ortho = ortho_phase(dev, Path(d))
+    kernels.append(quantize_phase(ortho["cube"],
+                                  ortho["counts"][QUANT_NAME]))
+    kernels.append(srf_phase(ortho["cube"], ortho["wavelengths"],
+                             ortho["good"]))
+    del ortho
+    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

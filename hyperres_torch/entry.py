@@ -14,8 +14,8 @@ from typing import Callable, Tuple, Union
 import numpy as np
 import torch
 
-from hyperres.core.config import RidgeSRConfig
-from hyperres.core.constants import EMIT_BANDS
+from .core.config import RidgeSRConfig
+from .core.constants import EMIT_BANDS
 
 from .fusion.ridge_sr import RidgeSpectralSR
 

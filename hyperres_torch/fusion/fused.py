@@ -32,9 +32,9 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from hyperres.core.config import OTConfig, PolyFusionConfig
-from hyperres.core.constants import NO_DATA_VALUE
-from hyperres.core.grid import Grid
+from ..core.config import OTConfig, PolyFusionConfig
+from ..core.constants import NO_DATA_VALUE
+from ..core.grid import Grid
 
 from ..device import resolve_device
 from ..kernels.host import (

@@ -22,7 +22,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from hyperres.core.config import OTConfig
+from ..core.config import OTConfig
 
 from ..device import resolve_device
 from ..kernels.lstsq import affine_fit, polyfit, polyval_channels

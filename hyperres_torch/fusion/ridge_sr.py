@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from hyperres.core.config import RidgeSRConfig
+from ..core.config import RidgeSRConfig
 
 from ..device import resolve_device
 from ..kernels.host import poly_factor_indices

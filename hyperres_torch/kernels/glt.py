@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from hyperres.core.constants import NO_DATA_VALUE
+from ..core.constants import NO_DATA_VALUE
 
 
 def glt_take(raw_hwb: torch.Tensor, flat_idx: torch.Tensor

@@ -14,9 +14,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from hyperres.core.constants import GLT_NODATA_VALUE
-from hyperres.core.crs import transform as crs_transform
-from hyperres.core.grid import Grid
+from ..core.constants import GLT_NODATA_VALUE
+from ..core.crs import transform as crs_transform
+from ..core.grid import Grid
 
 # {band: (lambda_nm, response)} — the reference's SRF dict contract
 SRFDict = Dict[str, Tuple[np.ndarray, np.ndarray]]

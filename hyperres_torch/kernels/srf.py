@@ -1,19 +1,38 @@
-"""SRF band synthesis as one band-mixing matmul (``hyperres/kernels/srf.py:108``).
+"""SRF band synthesis as one band-mixing product (``hyperres/kernels/srf.py:108``).
 
 Both trapezoid integrals of the reference are linear in the spectrum,
 so the synthesis is ``(H*W, B) @ (B, S)`` with the host-built weight
-matrix (``kernels.host.build_srf_weight_matrix``). The reference leaves
-this product to XLA outside any Pallas kernel; here it is a plain f32
-``torch.matmul`` (TF32 off, :mod:`hyperres_torch.device`).
+matrix (``kernels.host.build_srf_weight_matrix``).
+
+- :func:`srf_synthesize`: the fused plan's synthesis. The reference
+  leaves this product to XLA outside any Pallas kernel; here it is a
+  plain f32 ``torch.matmul`` (TF32 off, :mod:`hyperres_torch.device`).
+- :func:`pallas_srf_synthesize`: the product with the invalid-row fill,
+  ``out[n, s] = valid[n] ? sum_b x[n, b] W[b, s] : fill`` in f32, which
+  replaces ``pallas_srf_synthesize`` (``hyperres/kernels/pallas_ops.py:70``).
+  On a CUDA tensor the wrapper launches the hand-written kernel
+  ``csrc/srf_synthesize.cu`` (or raises); on a CPU tensor it runs
+  :func:`srf_synthesize_reference`, the plain PyTorch version.
+- :func:`srf_synthesize_auto`: the reference's dispatcher
+  (``pallas_ops.py:172``): the kernel with ``use_pallas=True``, the
+  matmul otherwise.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
-from hyperres.core.constants import NO_DATA_VALUE
+from ..core.constants import NO_DATA_VALUE
+from ..device import count_launch
+
+#: launch-counter name
+KERNEL_NAME = "srf_synthesize"
+#: the kernel's limits (csrc/srf_synthesize.cu: kMaxS, kMaxB)
+MAX_OUT_BANDS = 16
+MAX_IN_BANDS = 384
 
 
 def srf_synthesize(cube_hwb: torch.Tensor, weights_bs: torch.Tensor,
@@ -27,3 +46,96 @@ def srf_synthesize(cube_hwb: torch.Tensor, weights_bs: torch.Tensor,
     if valid_mask is not None:
         out = out.masked_fill(~valid_mask[..., None], fill_value)
     return out
+
+
+def _check(cube_flat: torch.Tensor, weights: torch.Tensor,
+           valid: Optional[torch.Tensor]):
+    """Validate the operands; returns (N, B, S)."""
+    if cube_flat.dim() != 2 or weights.dim() != 2:
+        raise ValueError(f"cube_flat (N, B) and weights (B, S) must be 2-D, "
+                         f"got {tuple(cube_flat.shape)} and "
+                         f"{tuple(weights.shape)}")
+    n, b = cube_flat.shape
+    if weights.shape[0] != b:
+        raise ValueError(f"weights {tuple(weights.shape)} do not match "
+                         f"{b} bands")
+    for name, t in (("cube_flat", cube_flat), ("weights", weights)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if weights.device != cube_flat.device:
+        raise ValueError(f"weights on {weights.device} but cube_flat on "
+                         f"{cube_flat.device}")
+    if valid is not None and (tuple(valid.shape) != (n,)
+                              or valid.dtype != torch.bool
+                              or valid.device != cube_flat.device):
+        raise ValueError(f"valid must be a ({n},) bool tensor on "
+                         f"{cube_flat.device}")
+    return n, b, weights.shape[1]
+
+
+def srf_synthesize_reference(cube_flat: torch.Tensor, weights: torch.Tensor,
+                             valid: Optional[torch.Tensor] = None,
+                             fill_value: float = NO_DATA_VALUE
+                             ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: (N, B) @ (B, S) -> (N, S),
+    rows where ``valid`` is False set to ``fill_value``."""
+    _check(cube_flat, weights, valid)
+    out = torch.matmul(cube_flat, weights)
+    if valid is not None:
+        out = out.masked_fill(~valid[:, None], fill_value)
+    return out
+
+
+def pallas_srf_synthesize(cube_flat: torch.Tensor, weights: torch.Tensor,
+                          valid: Optional[torch.Tensor] = None,
+                          fill_value: float = NO_DATA_VALUE) -> torch.Tensor:
+    """(N, B) @ (B, S) with the invalid-row fill in the kernel
+    (``pallas_ops.py:70``); returns (N, S) float32. The TPU tiling
+    argument has no counterpart (nothing is padded)."""
+    n, b, s = _check(cube_flat, weights, valid)
+    if cube_flat.device.type == "cpu":
+        return srf_synthesize_reference(cube_flat, weights, valid,
+                                        fill_value)
+    if cube_flat.device.type != "cuda":
+        raise ValueError(f"no SRF kernel for device {cube_flat.device}")
+    if not (1 <= s <= MAX_OUT_BANDS and 1 <= b <= MAX_IN_BANDS):
+        raise ValueError(f"the kernel takes B <= {MAX_IN_BANDS} and S <= "
+                         f"{MAX_OUT_BANDS}, got B = {b} and S = {s}")
+    from ._build import load_library
+
+    fn = load_library("srf_synthesize").srf_synthesize_f32
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    x = cube_flat.contiguous()
+    w = weights.contiguous()
+    mask = None if valid is None else valid.contiguous()
+    out = torch.empty((n, s), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), w.data_ptr(),
+                None if mask is None else mask.data_ptr(), out.data_ptr(),
+                n, b, s, float(fill_value), stream)
+    if rc != 0:
+        raise RuntimeError(f"srf_synthesize kernel launch failed: CUDA "
+                           f"error {rc}")
+    count_launch(KERNEL_NAME)
+    return out
+
+
+def srf_synthesize_auto(cube_hwb: torch.Tensor, weights_bs: torch.Tensor,
+                        valid_mask: Optional[torch.Tensor] = None,
+                        fill_value: float = NO_DATA_VALUE,
+                        use_pallas: bool = False) -> torch.Tensor:
+    """SRF synthesis of (H, W, B) to (H, W, S): the kernel
+    (:func:`pallas_srf_synthesize`) with ``use_pallas``, the matmul
+    (:func:`srf_synthesize`) otherwise (``pallas_ops.py:172``)."""
+    if not use_pallas:
+        return srf_synthesize(cube_hwb, weights_bs, valid_mask,
+                              fill_value=fill_value)
+    h, w, b = cube_hwb.shape
+    flat = cube_hwb.reshape(-1, b)
+    v = valid_mask.reshape(-1) if valid_mask is not None else None
+    out = pallas_srf_synthesize(flat, weights_bs, v, fill_value)
+    return out.reshape(h, w, weights_bs.shape[1])

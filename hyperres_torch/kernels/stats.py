@@ -1,5 +1,5 @@
-"""Masked percentile stretch, binary erosion and the u16 reflectance
-quantization (``hyperres/kernels/stats.py``).
+"""Masked percentile stretch, binary erosion, the u16 quantizers and the
+OBS range estimator (``hyperres/kernels/stats.py``).
 
 The reference finds its order statistics with a 32-step bit search
 (it works around the TPU sort's code size). Here they come from
@@ -15,10 +15,12 @@ stretched values agree to the last bit of the division.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from . import quantize
 
 
 def masked_order_stats(img: torch.Tensor, mask: torch.Tensor,
@@ -91,6 +93,61 @@ def erode_mask(mask: torch.Tensor, iterations: int = 1) -> torch.Tensor:
         m = (p[1:-1, 1:-1] & p[:-2, 1:-1] & p[2:, 1:-1]
              & p[1:-1, :-2] & p[1:-1, 2:])
     return m
+
+
+def strided_band_minmax(cube_hwb: torch.Tensor, nodata: float,
+                        stride: int = 64, pmin: float = 1.0,
+                        pmax: float = 99.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-band robust (pmin, pmax) percentiles of the valid values
+    (finite, != nodata) of a strided sample ``cube[::stride, ::stride]``,
+    the OBS scaling estimator (``stats.py:136``). Returns (lo, hi), each
+    (B,) float32, NaN for a band with no valid sample. Follows
+    ``jnp.nanpercentile``'s f32 arithmetic: rank ``q / 100 * (n - 1)``,
+    ``lo_value * (1 - w) + hi_value * w``."""
+    sample = cube_hwb[::stride, ::stride, :]
+    b = sample.shape[-1]
+    flat = sample.reshape(-1, b)
+    valid = torch.isfinite(flat) & (flat != np.float32(nodata))
+    xs = torch.sort(torch.where(valid, flat, float("nan")), dim=0).values
+    counts = valid.sum(dim=0).to(torch.float32)
+    out = []
+    for p in (pmin, pmax):
+        pos = (torch.tensor(p, dtype=torch.float32) / 100.0).to(
+            flat.device) * (counts - 1.0)
+        low, high = torch.floor(pos), torch.ceil(pos)
+        hw = pos - low
+        lw = 1.0 - hw
+        top = counts - 1.0
+        low = torch.maximum(torch.minimum(low, top), torch.zeros_like(low))
+        high = torch.maximum(torch.minimum(high, top), torch.zeros_like(high))
+        lv = xs.gather(0, low.to(torch.int64)[None])[0]
+        hv = xs.gather(0, high.to(torch.int64)[None])[0]
+        out.append(lv * lw + hv * hw)
+    return out[0], out[1]
+
+
+def quantize_u16(x: torch.Tensor, lo, hi,
+                 valid: Optional[torch.Tensor] = None, nodata_u16: int = 0,
+                 *, nodata_src: Optional[float] = None) -> torch.Tensor:
+    """Scale [lo, hi] -> [0, 65535] uint16 with a reserved nodata
+    sentinel, gdal_translate -scale semantics (``stats.py:289``): lo/hi
+    are scalars or per-band (B,) for (..., B) input. Validity is
+    ``valid`` when given, else ``isfinite(x)`` and ``x != nodata_src``
+    tested in the kernel. On a CUDA tensor this launches the quantize
+    kernel (:mod:`.quantize`); on a CPU tensor it runs its plain
+    version."""
+    return quantize.quantize_u16(x, lo, hi, valid, nodata_u16,
+                                 form="stats", nodata_src=nodata_src)
+
+
+def dequantize_u16(q: torch.Tensor, scale, offset, nodata_u16: int,
+                   fill: float = float("nan")) -> torch.Tensor:
+    """Inverse of quantize: ``q * scale + offset`` in float32, ``fill``
+    where ``q == nodata_u16`` (``stats.py:316``)."""
+    qi = q.to(torch.int32)
+    x = qi.to(torch.float32) * scale + offset
+    return torch.where(qi == int(nodata_u16), float(fill), x)
 
 
 def quantize_reflectance_u16(x: torch.Tensor, valid: torch.Tensor,

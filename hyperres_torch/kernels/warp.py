@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hyperres.core.constants import NO_DATA_VALUE
+from ..core.constants import NO_DATA_VALUE
 
 from .banded import (
     check_precision, scanline_resample, scanline_resample_dense,

@@ -14,7 +14,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from hyperres.core.constants import S2_BANDS_13
+from ..core.constants import S2_BANDS_13
 
 from ..kernels.host import SRFDict
 

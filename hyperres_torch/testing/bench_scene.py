@@ -19,9 +19,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from hyperres.core.constants import EMIT_BANDS
-from hyperres.core.crs import CRS
-from hyperres.core.grid import Grid, s2_anchored_target_grid
+from ..core.constants import EMIT_BANDS
+from ..core.crs import CRS
+from ..core.grid import Grid, s2_anchored_target_grid
 
 from ..kernels.host import build_srf_weight_matrix
 from ..spectral.srf_tables import builtin_srf

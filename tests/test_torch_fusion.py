@@ -17,13 +17,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax.numpy as jnp  # noqa: E402
 import chip_smoke  # noqa: E402
-from hyperres.core.config import OTConfig, PolyFusionConfig  # noqa: E402
+from hyperres.core import config as jconfig  # noqa: E402
 from hyperres.fusion.fused import FusedFusionPlan as JaxFusionPlan  # noqa: E402
 from hyperres.fusion.fused import FusedOrthoFusionPlan as JaxPlan  # noqa: E402
 from hyperres.kernels import lstsq as jlstsq  # noqa: E402
 from hyperres.kernels import sinkhorn as jsink  # noqa: E402
 from hyperres.kernels import srf as jsrf  # noqa: E402
 from hyperres.kernels import stats as jstats  # noqa: E402
+from hyperres_torch.core.config import OTConfig, PolyFusionConfig  # noqa: E402
 from hyperres_torch.fusion import fused as tfused  # noqa: E402
 from hyperres_torch.fusion.sampling import sample_valid_pixels_device  # noqa: E402
 from hyperres_torch.kernels import lstsq as tlstsq  # noqa: E402
@@ -35,6 +36,9 @@ from hyperres_torch.testing.bench_scene import generate_scene  # noqa: E402
 
 T = torch.from_numpy
 CFG = PolyFusionConfig(ot=OTConfig(n_samples=1500, num_itermax=120))
+#: the same configuration in the reference's classes, for its plans
+JCFG = jconfig.PolyFusionConfig(ot=jconfig.OTConfig(n_samples=1500,
+                                                    num_itermax=120))
 
 
 def test_srf_synthesize_matches_jax(rng):
@@ -247,7 +251,7 @@ def slice_run():
             sc["raw"].shape[:2], sc["glt"], sc["wavelengths"],
             sc["good_mask"])
     kw = dict(s2_nodata=65535.0, s2_scale=1e-4, config=CFG, srf=srf)
-    jplan = JaxPlan(*args, warp_kernel="two_pass", **kw)
+    jplan = JaxPlan(*args, warp_kernel="two_pass", **dict(kw, config=JCFG))
     js2 = jplan.prepare_s2(sc["s2_dn"])
     jout = {k: np.asarray(v) for k, v in jplan(sc["raw"], js2).items()}
     jref = np.asarray(jplan.s2_reference_10m(jout["utm_cube"], js2))
@@ -345,7 +349,8 @@ def test_plan_from_jax_state(slice_run):
     sc = slice_run["scene"]
     kw = dict(s2_nodata=65535.0, s2_scale=1e-4, config=CFG,
               srf=builtin_srf("S2A", bands=["B2", "B3", "B4"]))
-    jdense = JaxPlan(*_plan_args(sc), warp_kernel="pallas", **kw)
+    jdense = JaxPlan(*_plan_args(sc), warp_kernel="pallas",
+                     **dict(kw, config=JCFG))
     jw = jdense.warp_statics
     assert jw.backend == "pallas"
     tdense = tfused.FusedOrthoFusionPlan(*_plan_args(sc),
@@ -394,7 +399,8 @@ def affine_run(slice_run):
     args = (sc["utm60"], sc["s2_grid"], sc["wavelengths"], sc["good_mask"])
     kw = dict(fusion_method="ot_affine", s2_nodata=65535.0, s2_scale=1e-4,
               config=CFG, srf=builtin_srf("S2A", bands=["B2", "B3", "B4"]))
-    jout = JaxFusionPlan(*args, **kw)(slice_run["jout"]["utm_cube"],
+    jout = JaxFusionPlan(*args, **dict(kw, config=JCFG))(
+        slice_run["jout"]["utm_cube"],
                                       slice_run["js2"])
     tplan = tfused.FusedFusionPlan(*args, **kw)
     tout = tplan(slice_run["tout"]["utm_cube"], slice_run["ts2"])

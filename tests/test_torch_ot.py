@@ -17,12 +17,13 @@ torch = pytest.importorskip("torch")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax.numpy as jnp  # noqa: E402
-from hyperres.core.config import OTConfig  # noqa: E402
+from hyperres.core.config import OTConfig as JOTConfig  # noqa: E402
 from hyperres.fusion import ot as jot  # noqa: E402
 from hyperres.fusion import sampling as jsampling  # noqa: E402
 from hyperres.kernels import lstsq as jlstsq  # noqa: E402
 from hyperres.kernels import sinkhorn as jsink  # noqa: E402
 from hyperres.kernels.pallas_ops import pallas_sinkhorn_duals  # noqa: E402
+from hyperres_torch.core.config import OTConfig  # noqa: E402
 from hyperres_torch.device import launch_counts, reset_launch_counts  # noqa: E402
 from hyperres_torch.fusion import ot as tot  # noqa: E402
 from hyperres_torch.fusion import sampling as tsampling  # noqa: E402
@@ -266,6 +267,7 @@ def _rgb_pair(rng, h=40, w=50):
 
 
 CFG = OTConfig(n_samples=600, num_itermax=120, seed=3)
+JCFG = JOTConfig(n_samples=600, num_itermax=120, seed=3)
 
 
 def test_fit_ot_affine_matches_jax(rng):
@@ -274,7 +276,7 @@ def test_fit_ot_affine_matches_jax(rng):
     to 2e-5 (the targets agree to ~5e-6)."""
     src, ref, mask = _rgb_pair(rng)
     A, t = tot.fit_ot_affine(src, ref, mask, CFG)
-    jA, jt = jot.fit_ot_affine(src, ref, mask, CFG)
+    jA, jt = jot.fit_ot_affine(src, ref, mask, JCFG)
     assert A.dtype == np.float64 and A.shape == (3, 3) and t.shape == (3,)
     np.testing.assert_allclose(A, jA, rtol=0, atol=2e-5)
     np.testing.assert_allclose(t, jt, rtol=0, atol=2e-5)
@@ -308,7 +310,7 @@ def test_fit_and_apply_ot_poly_match_jax(rng):
     min_pixels."""
     src, ref, mask = _rgb_pair(rng)
     got = tot.fit_ot_poly(src, ref, mask, deg=2, cfg=CFG)
-    want = jot.fit_ot_poly(src, ref, mask, deg=2, cfg=CFG)
+    want = jot.fit_ot_poly(src, ref, mask, deg=2, cfg=JCFG)
     assert got.shape == (3, 3) and got.dtype == np.float64
     xx = np.linspace(0.0, 1.0, 101)
     for c in range(3):

@@ -14,6 +14,7 @@ same parameters agree to 1e-5 absolute (f32 sums of 285 terms).
 """
 
 import sys
+from dataclasses import asdict
 from pathlib import Path
 
 import numpy as np
@@ -25,11 +26,12 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import jax.numpy as jnp  # noqa: E402
-from hyperres.core.config import RidgeSRConfig  # noqa: E402
+from hyperres.core.config import RidgeSRConfig as JRidgeSRConfig  # noqa: E402
 from hyperres.fusion import ridge_sr as jridge  # noqa: E402
 from hyperres.kernels import lstsq as jlstsq  # noqa: E402
 from hyperres.kernels import stats as jstats  # noqa: E402
 from hyperres.kernels.pallas_ops import pallas_sr_predict_u16  # noqa: E402
+from hyperres_torch.core.config import RidgeSRConfig  # noqa: E402
 from hyperres_torch.device import launch_counts, reset_launch_counts  # noqa: E402
 from hyperres_torch.fusion import ridge_sr as tridge  # noqa: E402
 from hyperres_torch.kernels import host  # noqa: E402
@@ -65,7 +67,8 @@ def _carry(jmodel):
     """The port's model holding the JAX model's parameters."""
     p = jmodel.params
     return tridge.RidgeSpectralSR(
-        jmodel.n_inputs, jmodel.n_outputs, jmodel.cfg).params_from_numpy(
+        jmodel.n_inputs, jmodel.n_outputs,
+        RidgeSRConfig(**asdict(jmodel.cfg))).params_from_numpy(
         np.asarray(p.x_mean), np.asarray(p.x_std), np.asarray(p.W),
         np.asarray(p.intercept))
 
@@ -75,8 +78,8 @@ def jax_models():
     out = {}
     for name, (bx, by, deg) in MODELS.items():
         X, Y = _training_data(bx, by, 6000, 1)
-        m = jridge.RidgeSpectralSR(bx, by, RidgeSRConfig(degree=deg,
-                                                         batch_pixels=512))
+        m = jridge.RidgeSpectralSR(bx, by, JRidgeSRConfig(degree=deg,
+                                                          batch_pixels=512))
         out[name] = m.fit(X, Y)
     return out
 
@@ -238,7 +241,7 @@ def test_fit_matches_jax(weighted):
     w = None
     if weighted:
         w = np.random.default_rng(5).random(20000).astype(np.float32)
-    jm = jridge.RidgeSpectralSR(bx, by, RidgeSRConfig(degree=deg)).fit(
+    jm = jridge.RidgeSpectralSR(bx, by, JRidgeSRConfig(degree=deg)).fit(
         X, Y, w)
     tm = tridge.RidgeSpectralSR(bx, by, RidgeSRConfig(degree=deg)).fit(
         X, Y, w)
@@ -258,14 +261,15 @@ def test_checkpoint_crosses_both_ways(jax_models, tmp_path, rng):
     jax_ckpt = tmp_path / "jax.npz"
     jridge.save_params(jax_ckpt, jm)
     tm = tridge.load_params(jax_ckpt)
-    assert tm.cfg == jm.cfg and tm.n_outputs == jm.n_outputs
+    assert type(tm.cfg) is RidgeSRConfig
+    assert asdict(tm.cfg) == asdict(jm.cfg) and tm.n_outputs == jm.n_outputs
     X = rng.random((300, jm.n_inputs)).astype(np.float32)
     np.testing.assert_allclose(tm.predict(X).numpy(), jm.predict(X),
                                atol=1e-5)
     port_ckpt = tmp_path / "port.npz"
     tridge.save_params(port_ckpt, tm)
     back = jridge.load_params(port_ckpt)
-    assert back.cfg == jm.cfg
+    assert back.cfg == jm.cfg and type(back.cfg) is JRidgeSRConfig
     np.testing.assert_array_equal(np.asarray(back.params.W),
                                   np.asarray(jm.params.W))
     np.testing.assert_allclose(back.predict(X), jm.predict(X), atol=0)
@@ -284,7 +288,7 @@ def test_entry_matches_graft_entry():
     want = np.asarray(jfwd(jx))
     X, Y, x = entry_data()
     np.testing.assert_array_equal(x, np.asarray(jx))
-    jm = jridge.RidgeSpectralSR(10, 285, RidgeSRConfig(degree=3)).fit(X, Y)
+    jm = jridge.RidgeSpectralSR(10, 285, JRidgeSRConfig(degree=3)).fit(X, Y)
     np.testing.assert_allclose(_carry(jm)(T(x)).numpy(), want, atol=1e-5)
     fwd, (tx,) = entry()
     got = fwd(tx).detach().numpy()
