@@ -43,16 +43,22 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    timed at the plan's shapes.
 5b. Sinkhorn at 5000 x 5000 on the full-scale scene's stretched 60 m
    OT samples and slot weights, under the plan's own ``OTConfig``
-   (the defaults): the duals kernel against its plain version at a
-   fixed sweep count, P = exp(Mr + f + g) within SINKHORN_P_RTOL of
-   its largest entry, f and g within SINKHORN_FG_TOL, err within
-   SINKHORN_ERR_RTOL / _ATOL; both with the config's stop rule, the
-   same sweep count and err within the same bound;
-   ``ot_barycentric_targets(engine=
-   "pallas")``, whose run must launch the kernel, against
-   ``engine="xla"`` at an equal sweep count within ENGINE_TOL (with
-   the stop rule the two engines stop on different marginals, and
-   their difference is printed); both engines timed.
+   (the defaults), on the one-pass route: the duals kernel against its
+   plain version at a fixed sweep count, P = exp(Mr + f + g) within
+   SINKHORN_P_RTOL of its largest entry, f and g within
+   SINKHORN_FG_TOL, err within SINKHORN_ERR_RTOL / _ATOL, two runs
+   bit-equal, only the one-pass counter launched; with the config's
+   stop rule, the same sweep count and err within the same bound; the
+   same sweeps timed on the two-read kernels for comparison;
+   ``ot_barycentric_targets(engine="pallas")``, whose run must launch
+   the one-pass kernel and nothing else, against ``engine="xla"`` at an
+   equal sweep count within ENGINE_TOL (with the stop rule the two
+   engines stop on different marginals, and their difference is
+   printed); both engines timed. Then the long-rows route at
+   SINKHORN_LONG_ROWS_SHAPE (128 x 100,000 seeded samples):
+   ``ot_barycentric_targets(engine="pallas")`` must launch the
+   long-rows kernels and nothing else, then the same checks (err's
+   floor SINKHORN_LONG_ROWS_ERR_ATOL).
 5c. The ``fusion_method="ot_affine"`` plan at full scale: shapes,
    finite fraction > 0.3, max <= 1; its PSNRs and SAM printed
    (``bench.py`` gates only ``ot_poly``).
@@ -63,14 +69,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    finite.
 7. SR kernel vs plain: ``csrc/sr_predict.cu`` against its plain PyTorch
    version on a 1024 x 1024 px cube with a NaN and a nodata pixel, both
-   layouts, By = 32 and By = 285: identical 65535 mask, <= SR_STEPS_TOL
-   u16 steps; the row-major serving form timed at By = 285.
+   layouts, By = 32 and By = 285, and on a 256 x 256 px cube for a
+   degree-4 model (F = 1000, 16 bands per CTA): identical 65535 mask,
+   <= SR_STEPS_TOL u16 steps; a model past the kernel's shared memory
+   (12 bands at degree 4, F = 1819) must be refused before launch; the
+   row-major serving form timed at By = 285.
 8. SR main path at full scale: ``predict_cube_u16`` on a (10, 9140,
    9309) cube with a nodata stripe over the first 5 % of rows, once to
    warm up and N_RUNS times under CUDA events; checks the (32, 9140,
    9309) u16 product, that the stripe and nothing else is 65535, that
    every run launched the kernel, and the kernel against its plain
-   version at that shape; times both.
+   version at that shape; times both. The bound counts the contraction
+   as SR_TC_TERMS TF32 products at the dense TF32 peak (f32 accuracy on
+   the tensor cores); the f32 pipes' bound and the earlier SIMT f32
+   kernel's time are printed beside it.
 9. Ortho export path at full width: the port's ``make_scene`` writes an
    uncompressed 1242 x 1280 x 285 granule into a temporary directory;
    ``orthorectify_granule`` runs with ``OrthoConfig()`` (u16 streamed
@@ -94,7 +106,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    SRF_TOL and the fill exact; kernel, plain and ``torch.matmul`` timed.
 
 Prints the kernels' JSON line (the two banded passes, the dense route,
-``sinkhorn_duals``, ``sr_predict_u16``, ``quantize_u16``,
+``sinkhorn_duals`` (one pass), ``sinkhorn_duals_long_rows``,
+``sr_predict_u16``, ``quantize_u16``,
 ``srf_synthesize``; each with its launches, error, times, its bound on
 this card and a library call's time where one PyTorch call computes the
 same function), then as its last line
@@ -197,9 +210,28 @@ PREFETCH_DEPTH = 3
 PREFETCH_COPY_HOLD = 1_000_000
 PREFETCH_READ_HOLD = 4_000_000
 #: the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
-#: bytes/s and float32 FLOP/s outside the tensor cores
+#: bytes/s, float32 FLOP/s outside the tensor cores and dense TF32 FLOP/s
+#: on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_TC_FLOPS = 495e12
+#: the SR kernel's contraction at f32 accuracy on the tensor cores: three
+#: TF32 products (A_hi B_hi + A_hi B_lo + A_lo B_hi)
+SR_TC_TERMS = 3
+#: the degree-4 check: F = 1000 monomials of 10 bands (1184 K columns,
+#: 16 bands per CTA)
+SR_DEG4_HW = (256, 256)
+#: the earlier SIMT f32 SR kernel on an H100 80GB HBM3 at 700 W, for the
+#: printout: the product and the row-major (1 M, 10) -> (1 M, 285) form
+SR_SIMT_MS = {"product": 62.714, "rowmajor": 8.205}
+#: the long-rows Sinkhorn route's check: few rows, columns past the
+#: one-pass limit, inside the engine budget
+SINKHORN_LONG_ROWS_SHAPE = (128, 100_000)
+#: its err bound's floor: each row sums 100,000 exps (the row kernel ~390
+#: of them in order per thread), so near convergence err is rounding
+#: noise of a few 1e-7 (measured on an H100 at 300 sweeps: 5.4e-7 kernel,
+#: 6.9e-7 plain)
+SINKHORN_LONG_ROWS_ERR_ATOL = 3e-7
 
 
 def log(msg: str) -> None:
@@ -227,11 +259,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, flops: float) -> dict:
+def bound(n_bytes: float, flops: float,
+          peak_flops: float = PEAK_F32_FLOPS) -> dict:
     """The least time the card could take for work that moves ``n_bytes``
-    and does ``flops`` float32 operations: the larger of the two over the
-    card's peaks, and which one it is."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    and does ``flops`` operations at ``peak_flops`` (float32 outside the
+    tensor cores by default): the larger of the two over the card's
+    peaks, and which one it is."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / peak_flops
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -368,6 +402,21 @@ def sr_training_data(rng, n: int = 200_000):
     return X, Y
 
 
+def sr_bound(n_px: int, n_features: int, by: int,
+             mask_bytes: float = 0.0) -> dict:
+    """The SR kernel's bound: per pixel SR_BX f32 (and ``mask_bytes`` of
+    mask) read and ``by`` u16 written; F monomials times ``by`` outputs,
+    one multiply-add each, at f32 accuracy on the tensor cores (SR_TC_TERMS
+    TF32 products at the dense TF32 peak). ``f32_ms``: the same
+    operations on the f32 pipes, the bound of a kernel without tensor
+    cores."""
+    n_bytes = n_px * (4.0 * SR_BX + mask_bytes + 2.0 * by)
+    flops = 2.0 * n_features * by * n_px
+    out = bound(n_bytes, SR_TC_TERMS * flops, PEAK_TF32_TC_FLOPS)
+    out["f32_ms"] = bound(n_bytes, flops)["bound_ms"]
+    return out
+
+
 def sr_phases(dev) -> dict:
     """Phases 6-8 (see the module docstring). Returns the SR kernel's
     entry of the kernels line."""
@@ -377,7 +426,8 @@ def sr_phases(dev) -> dict:
     from hyperres_torch.entry import entry
     from hyperres_torch.fusion.ridge_sr import RidgeSpectralSR
     from hyperres_torch.kernels.sr_predict import (
-        KERNEL_NAME, sr_predict_u16, sr_predict_u16_reference, valid_pixels,
+        KERNEL_NAME, sr_k_columns, sr_predict_u16, sr_predict_u16_reference,
+        sr_tile_bands, valid_pixels,
     )
 
     # -- 6. fit on the card, entry forward ---------------------------------
@@ -388,7 +438,7 @@ def sr_phases(dev) -> dict:
     model = RidgeSpectralSR(SR_BX, SR_BY, cfg, device=dev).fit(Xt, Yt)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
-    cpu_model = RidgeSpectralSR(SR_BX, SR_BY, cfg).fit(Xt, Yt)
+    cpu_model = RidgeSpectralSR(SR_BX, SR_BY, cfg, device="cpu").fit(Xt, Yt)
     xq = rng.random((8192, SR_BX)).astype(np.float32)
     fit_err = float((model.predict(xq).cpu() - cpu_model.predict(xq))
                     .abs().max())
@@ -407,15 +457,15 @@ def sr_phases(dev) -> dict:
     if tuple(y.shape) != (8192, 285) or not bool(torch.isfinite(y).all()):
         fail("entry forward is not a finite (8192, 285) tensor")
 
-    # -- 7. kernel vs plain at 1024 x 1024 px, both layouts, By 32 / 285 ----
-    worst = 0
-    h, w = SR_CHECK_HW
-    cube = rng.random((SR_BX, h, w)).astype(np.float32)
-    cube[3, h // 10, w // 5] = np.nan
-    cube[7, h // 2, w // 2] = SR_NODATA
-    Xc = torch.from_numpy(cube).to(dev).reshape(SR_BX, h * w)
-    for m in (model, fwd):
+    # -- 7. kernel vs plain at 1024 x 1024 px, both layouts, By 32 / 285;
+    # degree 4 (F = 1000) at 256 x 256 px; the F limit ----------------------
+    def check_both_layouts(m, Xc) -> int:
+        """The kernel against its plain version on the (Bx, N) cube Xc,
+        which holds one NaN and one nodata pixel, in both layouts:
+        identical 65535 mask (exactly those 2 pixels), <= SR_STEPS_TOL
+        steps. Returns the largest step."""
         args = (m.x_mean, m.x_std, m.W, m.intercept, m.factors)
+        steps_max = 0
         for layout in ("cmajor", "rowmajor"):
             X = Xc if layout == "cmajor" else Xc.T.contiguous()
             kw = {"nodata": SR_NODATA}
@@ -427,15 +477,46 @@ def sr_phases(dev) -> dict:
                 got, want = got.T, want.T
             same, steps, n_diff = u16_compare(got, want)
             n_nodata = int((got.to(torch.int32) == 65535).sum())
-            log(f"check SR {layout} By={m.n_outputs}: mask identical "
-                f"{same}, max |dq| {steps} (tol {SR_STEPS_TOL}), "
-                f"{n_diff} of {got.numel()} elements differ, "
-                f"{n_nodata // m.n_outputs} nodata px")
+            k_cols = sr_k_columns(m.factors.cpu().numpy())
+            log(f"check SR {layout} Bx={m.n_inputs} By={m.n_outputs} "
+                f"degree {m.cfg.degree} F={m.n_features} ({k_cols} K "
+                f"columns, {sr_tile_bands(k_cols, m.cfg.degree)} bands per "
+                f"CTA), {Xc.shape[1]} px: mask identical {same}, "
+                f"max |dq| {steps} (tol {SR_STEPS_TOL}), {n_diff} of "
+                f"{got.numel()} elements differ, {n_nodata // m.n_outputs} "
+                f"nodata px")
             if not (same and steps <= SR_STEPS_TOL and
                     n_nodata == 2 * m.n_outputs):
                 fail(f"SR kernel disagrees with its plain version "
-                     f"({layout}, By={m.n_outputs})")
-            worst = max(worst, steps)
+                     f"({layout}, By={m.n_outputs}, F={m.n_features})")
+            steps_max = max(steps_max, steps)
+        return steps_max
+
+    def check_cube(h, w):
+        cube = rng.random((SR_BX, h, w)).astype(np.float32)
+        cube[3, h // 10, w // 5] = np.nan
+        cube[7, h // 2, w // 2] = SR_NODATA
+        return torch.from_numpy(cube).to(dev).reshape(SR_BX, h * w)
+
+    h, w = SR_CHECK_HW
+    Xc = check_cube(h, w)
+    worst = max(check_both_layouts(m, Xc) for m in (model, fwd))
+    deg4 = RidgeSpectralSR(SR_BX, SR_BY, RidgeSRConfig(degree=4),
+                           device=dev).fit(Xt, Yt)
+    worst = max(worst, check_both_layouts(deg4, check_cube(*SR_DEG4_HW)))
+    # a model past the kernel's shared memory: 12 bands at degree 4 (F =
+    # 1819, 2080 K columns) is refused before launch
+    big = RidgeSpectralSR(12, 4, RidgeSRConfig(degree=4), device=dev)
+    big.params_from_numpy(np.zeros(12, np.float32), np.ones(12, np.float32),
+                          np.zeros((big.n_features, 4), np.float32),
+                          np.zeros(4, np.float32))
+    try:
+        sr_predict_u16(torch.zeros((12, 64), device=dev), big.x_mean,
+                       big.x_std, big.W, big.intercept, big.factors)
+        fail(f"the SR kernel took F = {big.n_features}")
+    except ValueError as e:
+        log(f"SR F limit: F = {big.n_features} refused ({e})")
+    del deg4, big
     # the row-major serving form at By = 285, timed
     Xr = Xc.T.contiguous()
     kw = {"valid": valid_pixels(Xr, SR_NODATA), "layout": "rowmajor"}
@@ -443,13 +524,13 @@ def sr_phases(dev) -> dict:
     row_ms = cuda_ms(lambda: sr_predict_u16(Xr, *args, **kw), 10)
     row_plain_ms = cuda_ms(lambda: sr_predict_u16_reference(Xr, *args, **kw),
                            2)
-    row = bound(h * w * (4.0 * SR_BX + 1.0 + 2.0 * fwd.n_outputs),
-                2.0 * fwd.n_features * fwd.n_outputs * h * w)
+    row = sr_bound(h * w, fwd.n_features, fwd.n_outputs, mask_bytes=1.0)
     log(f"SR row-major form ({h * w}, {SR_BX}) -> ({h * w}, "
-        f"{fwd.n_outputs}): kernel {row_ms:.3f} ms, plain "
-        f"{row_plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
-        f"({row['bound_by']})")
-    del Xc, Xr, got, want, fwd, x, y
+        f"{fwd.n_outputs}): kernel {row_ms:.3f} ms (the SIMT f32 kernel "
+        f"took {SR_SIMT_MS['rowmajor']} ms), plain {row_plain_ms:.3f} ms, "
+        f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}; f32 pipes "
+        f"{row['f32_ms']:.3f} ms)")
+    del Xc, Xr, fwd, x, y
 
     # -- 8. main SR path at full scale -------------------------------------
     t0 = time.perf_counter()
@@ -512,12 +593,14 @@ def sr_phases(dev) -> dict:
     ms = cuda_ms(lambda: sr_predict_u16(X2, *args, nodata=SR_NODATA), 5)
     plain_ms = cuda_ms(lambda: sr_predict_u16_reference(
         X2, *args, nodata=SR_NODATA), 1)
-    log(f"SR kernel at {SR_SHAPE} -> {expect}: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms")
-    # per pixel: Bx f32 read, By u16 written; F monomials times By outputs
-    # (one FMA each)
-    work = bound(n_px * (4.0 * SR_BX + 2.0 * SR_BY),
-                 2.0 * model.n_features * SR_BY * n_px)
+    work = sr_bound(n_px, model.n_features, SR_BY)
+    f32_ms = work.pop("f32_ms")
+    log(f"SR kernel at {SR_SHAPE} -> {expect}: kernel {ms:.3f} ms (the "
+        f"SIMT f32 kernel took {SR_SIMT_MS['product']} ms), plain "
+        f"{plain_ms:.3f} ms; bound {work['bound_ms']:.3f} ms "
+        f"({work['bound_by']}: {SR_TC_TERMS} TF32 products at "
+        f"{PEAK_TF32_TC_FLOPS / 1e12:g} TFLOP/s), {work['bound_ms'] / ms:.1%} "
+        f"of it; the f32 pipes' bound {f32_ms:.3f} ms")
     return {"name": KERNEL_NAME, "route": "cuda", "source": SR_SOURCE,
             "replaces": SR_REPLACES, "launches": counts[KERNEL_NAME],
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
@@ -595,35 +678,44 @@ def check_gates(plan, out, s2, label: str, method: str = "ot_poly",
         fail(f"{label}: accuracy gates {GATES} not met")
 
 
-def sinkhorn_phase(Xs, wxs, Ys, wys, ot) -> dict:
-    """Phase 5b (see the module docstring) on the OT stage's samples.
-    Returns the kernel's entry of the kernels line."""
+def sinkhorn_bound(n: int, m: int, sweeps: int) -> dict:
+    """``sweeps`` Sinkhorn sweeps on an (n, m) Mr. A sweep updates f over
+    Mr's rows, then g over its columns. The function needs one read of Mr
+    per sweep (a block can keep its rows on chip, take the row update and
+    add its column partials in the same pass) plus the f, g, a, b
+    vectors; ~6 operations per element and update."""
+    per_sweep = bound(4.0 * n * m + 8.0 * (n + m), 12.0 * n * m)
+    return {"bound_ms": per_sweep["bound_ms"] * sweeps,
+            "bound_by": per_sweep["bound_by"]}
+
+
+def sinkhorn_checks(la, lb, Mr, ot, name: str,
+                    err_atol: float = SINKHORN_ERR_ATOL) -> dict:
+    """The duals kernel of the route whose launch counter is ``name``
+    against its plain version on one (n, m) Mr: at a fixed sweep count
+    (``ot.num_itermax``), P = exp(Mr + f + g) within SINKHORN_P_RTOL of
+    its largest entry, f and g within SINKHORN_FG_TOL, err within
+    SINKHORN_ERR_RTOL / ``err_atol``, two kernel runs bit-equal, only
+    ``name`` launched; with the config's stop rule the same sweep count and err
+    within the same bound. Returns P's error, the stop rule's sweeps and
+    times (kernel and plain, fixed count and stop rule)."""
     import torch
     from hyperres_torch.device import launch_counts, reset_launch_counts
-    from hyperres_torch.kernels.sinkhorn import (
-        marginal, ot_barycentric_targets, sqeuclidean_cdist,
-    )
     from hyperres_torch.kernels.sinkhorn_duals import (
-        KERNEL_NAME, sinkhorn_duals, sinkhorn_duals_reference,
+        sinkhorn_duals, sinkhorn_duals_reference,
     )
-
-    n, m = Xs.shape[0], Ys.shape[0]
-    la = torch.log(marginal(wxs, n, Xs.device))
-    lb = torch.log(marginal(wys, m, Ys.device))
-    Mr = -sqeuclidean_cdist(Xs, Ys) / ot.reg
-    log(f"Sinkhorn: {n} x {m} samples ({int(wxs.sum())} / {int(wys.sum())} "
-        f"real), reg {ot.reg}, num_itermax {ot.num_itermax}, stop_thr "
-        f"{ot.stop_thr}")
 
     def err_close(kerr, perr) -> bool:
         kerr, perr = float(kerr), float(perr)
         return abs(kerr - perr) <= (SINKHORN_ERR_RTOL * max(kerr, perr)
-                                    + SINKHORN_ERR_ATOL)
+                                    + err_atol)
 
-    # kernel vs plain at a fixed sweep count
+    n, m = Mr.shape
     fixed = (ot.num_itermax, 0.0)
+    reset_launch_counts()
     f, g, err = sinkhorn_duals(la, lb, Mr, *fixed)
     f2, g2, _ = sinkhorn_duals(la, lb, Mr, *fixed)
+    counts = dict(launch_counts)
     rf, rg, rerr = sinkhorn_duals_reference(la, lb, Mr, *fixed)
     P = torch.exp(Mr + f[:, None] + g[None, :])
     p_max = float(P.max())
@@ -632,20 +724,25 @@ def sinkhorn_phase(Xs, wxs, Ys, wys, ot) -> dict:
     del P
     fg_err = max(float((f - rf).abs().max()), float((g - rg).abs().max()))
     same = bool(torch.equal(f, f2) and torch.equal(g, g2))
-    log(f"Sinkhorn {fixed[0]} sweeps, kernel vs plain: P max abs err "
-        f"{p_err:.3e} = {p_err / p_max:.3e} of P max {p_max:.3e} (tol "
+    log(f"Sinkhorn {n} x {m}, {fixed[0]} sweeps, kernel vs plain: P max abs "
+        f"err {p_err:.3e} = {p_err / p_max:.3e} of P max {p_max:.3e} (tol "
         f"{SINKHORN_P_RTOL:g}); f, g max abs err {fg_err:.3e} (tol "
         f"{SINKHORN_FG_TOL:g}; max |f| {float(f.abs().max()):.3f}, max |g| "
         f"{float(g.abs().max()):.3f}); err {float(err):.3e} / "
-        f"{float(rerr):.3e}; two kernel runs bit-equal {same}")
+        f"{float(rerr):.3e}; two kernel runs bit-equal {same}; launches "
+        f"{counts}")
+    if set(counts) != {name}:
+        fail(f"Sinkhorn {n} x {m} took another route than {name}: {counts}")
     if not (p_err <= SINKHORN_P_RTOL * p_max and fg_err <= SINKHORN_FG_TOL
             and err_close(err, rerr) and same):
-        fail("sinkhorn_duals disagrees with its plain version")
+        fail(f"{name} disagrees with its plain version")
     ms_fixed = cuda_ms(lambda: sinkhorn_duals(la, lb, Mr, *fixed), 3)
     plain_fixed = cuda_ms(lambda: sinkhorn_duals_reference(la, lb, Mr,
                                                            *fixed), 1)
-    log(f"Sinkhorn per sweep: kernel {ms_fixed / fixed[0] * 1e3:.2f} us, "
-        f"plain {plain_fixed / fixed[0] * 1e3:.2f} us")
+    log(f"Sinkhorn {n} x {m} per sweep: kernel "
+        f"{ms_fixed / fixed[0] * 1e3:.2f} us, plain "
+        f"{plain_fixed / fixed[0] * 1e3:.2f} us, bound "
+        f"{sinkhorn_bound(n, m, 1)['bound_ms'] * 1e3:.2f} us")
 
     # the config's stop rule
     rule = (ot.num_itermax, ot.stop_thr)
@@ -655,12 +752,46 @@ def sinkhorn_phase(Xs, wxs, Ys, wys, ot) -> dict:
     ms = cuda_ms(lambda: sinkhorn_duals(la, lb, Mr, *rule), 5)
     plain_ms = cuda_ms(lambda: sinkhorn_duals_reference(la, lb, Mr, *rule),
                        2)
-    log(f"Sinkhorn stop rule: kernel {ksw} sweeps, err {float(kerr):.3e}, "
-        f"{ms:.3f} ms; plain {psw} sweeps, err {float(perr):.3e}, "
-        f"{plain_ms:.3f} ms")
+    log(f"Sinkhorn {n} x {m} stop rule: kernel {ksw} sweeps, err "
+        f"{float(kerr):.3e}, {ms:.3f} ms; plain {psw} sweeps, err "
+        f"{float(perr):.3e}, {plain_ms:.3f} ms")
     if not (ksw == psw and err_close(kerr, perr)):
-        fail("under the stop rule sinkhorn_duals stops at another sweep "
-             "or err than its plain version")
+        fail(f"under the stop rule {name} stops at another sweep or err "
+             f"than its plain version")
+    return {"p_err": p_err, "sweeps": ksw, "ms": ms, "plain_ms": plain_ms,
+            "ms_fixed": ms_fixed}
+
+
+def sinkhorn_phase(Xs, wxs, Ys, wys, ot) -> dict:
+    """Phase 5b (see the module docstring) on the OT stage's samples.
+    Returns the one-pass kernel's entry of the kernels line."""
+    import torch
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.kernels import sinkhorn_duals as sd
+    from hyperres_torch.kernels.sinkhorn import (
+        marginal, ot_barycentric_targets, sqeuclidean_cdist,
+    )
+
+    n, m = Xs.shape[0], Ys.shape[0]
+    la = torch.log(marginal(wxs, n, Xs.device))
+    lb = torch.log(marginal(wys, m, Ys.device))
+    Mr = -sqeuclidean_cdist(Xs, Ys) / ot.reg
+    log(f"Sinkhorn: {n} x {m} samples ({int(wxs.sum())} / {int(wys.sum())} "
+        f"real), reg {ot.reg}, num_itermax {ot.num_itermax}, stop_thr "
+        f"{ot.stop_thr}")
+    res = sinkhorn_checks(la, lb, Mr, ot, sd.KERNEL_NAME)
+    # the same sweeps on the two-read kernels (the long-rows route, forced
+    # by a stand-in route rule), timed in this process for the comparison
+    route_rule = sd.sinkhorn_route
+    sd.sinkhorn_route = lambda *shape: sd.Route(sd.LONG_ROWS)
+    try:
+        two_read_ms = cuda_ms(lambda: sd.sinkhorn_duals(
+            la, lb, Mr, ot.num_itermax, 0.0), 3)
+    finally:
+        sd.sinkhorn_route = route_rule
+    log(f"Sinkhorn {n} x {m} per sweep on the two-read kernels: "
+        f"{two_read_ms / ot.num_itermax * 1e3:.2f} us (one pass "
+        f"{res['ms_fixed'] / ot.num_itermax * 1e3:.2f} us)")
 
     # the engines: the main path of this phase first
     kw = dict(reg=ot.reg, wx=wxs, wy=wys)
@@ -669,18 +800,20 @@ def sinkhorn_phase(Xs, wxs, Ys, wys, ot) -> dict:
                                     stop_thr=ot.stop_thr, engine="pallas",
                                     **kw)
     torch.cuda.synchronize()
-    launches = launch_counts.get(KERNEL_NAME, 0)
-    log(f"ot_barycentric_targets(engine='pallas'): launches {launches}")
-    if launches < 1:
-        fail(f"{KERNEL_NAME} did not launch in the engine='pallas' run")
+    counts = dict(launch_counts)
+    launches = counts.get(sd.KERNEL_NAME, 0)
+    log(f"ot_barycentric_targets(engine='pallas'): launches {counts}")
+    if launches < 1 or set(counts) != {sd.KERNEL_NAME}:
+        fail(f"{sd.KERNEL_NAME} alone should launch in the engine='pallas' "
+             f"run: {counts}")
     x_rule = ot_barycentric_targets(Xs, Ys, num_itermax=ot.num_itermax,
                                     stop_thr=ot.stop_thr, engine="xla", **kw)
-    eng = [ot_barycentric_targets(Xs, Ys, num_itermax=fixed[0],
+    eng = [ot_barycentric_targets(Xs, Ys, num_itermax=ot.num_itermax,
                                   stop_thr=0.0, engine=e, **kw)
            for e in ("pallas", "xla")]
     eng_err = float((eng[0] - eng[1]).abs().max())
     rule_diff = float((t_rule - x_rule).abs().max())
-    log(f"engines at {fixed[0]} sweeps each: targets max abs diff "
+    log(f"engines at {ot.num_itermax} sweeps each: targets max abs diff "
         f"{eng_err:.3e} (tol {ENGINE_TOL:g}); with the stop rule (row vs "
         f"column marginal): {rule_diff:.3e}")
     if not eng_err <= ENGINE_TOL:
@@ -690,17 +823,54 @@ def sinkhorn_phase(Xs, wxs, Ys, wys, ot) -> dict:
         **kw), 3) for e in ("pallas", "xla")}
     log(f"ot_barycentric_targets with the stop rule: engine='pallas' "
         f"{e_ms['pallas']:.3f} ms, engine='xla' {e_ms['xla']:.3f} ms")
-    # a sweep updates f over Mr's rows, then g over its columns. The
-    # function needs one read of Mr per sweep (a block can keep its rows
-    # on chip, take the row update and add its column partials in the
-    # same pass) plus the f, g, a, b vectors; ~6 operations per element
-    # and update
-    per_sweep = bound(4.0 * n * m + 8.0 * (n + m), 12.0 * n * m)
-    return {"name": KERNEL_NAME, "route": "cuda", "source": SINKHORN_SOURCE,
-            "replaces": SINKHORN_REPLACES, "launches": launches,
-            "max_abs_err": p_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": per_sweep["bound_ms"] * ksw,
-            "bound_by": per_sweep["bound_by"], "library_ms": None}
+    return {"name": sd.KERNEL_NAME, "route": "cuda",
+            "source": SINKHORN_SOURCE, "replaces": SINKHORN_REPLACES,
+            "launches": launches, "max_abs_err": res["p_err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            **sinkhorn_bound(n, m, res["sweeps"]), "library_ms": None}
+
+
+def sinkhorn_long_rows_phase(dev, ot) -> dict:
+    """Phase 5b's long-rows route: SINKHORN_LONG_ROWS_SHAPE seeded RGB
+    samples in [0, 1), uniform marginals, the plan's ``OTConfig``;
+    ``ot_barycentric_targets(engine="pallas")`` must launch the long-rows
+    kernels and nothing else, then the checks of
+    :func:`sinkhorn_checks`. Returns the route's entry of the kernels
+    line."""
+    import torch
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.kernels.sinkhorn import (
+        marginal, ot_barycentric_targets, sqeuclidean_cdist,
+    )
+    from hyperres_torch.kernels.sinkhorn_duals import LONG_ROWS_NAME
+
+    n, m = SINKHORN_LONG_ROWS_SHAPE
+    rng = np.random.default_rng(11)
+    Xs = torch.from_numpy(rng.random((n, 3), dtype=np.float32)).to(dev)
+    Ys = torch.from_numpy(rng.random((m, 3), dtype=np.float32)).to(dev)
+    reset_launch_counts()
+    targets = ot_barycentric_targets(Xs, Ys, reg=ot.reg,
+                                     num_itermax=ot.num_itermax,
+                                     stop_thr=ot.stop_thr, engine="pallas")
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    log(f"ot_barycentric_targets(engine='pallas') at {n} x {m}: launches "
+        f"{counts}, targets {tuple(targets.shape)} finite "
+        f"{bool(torch.isfinite(targets).all())}")
+    if (counts.get(LONG_ROWS_NAME, 0) < 1 or set(counts) != {LONG_ROWS_NAME}
+            or not bool(torch.isfinite(targets).all())):
+        fail(f"{LONG_ROWS_NAME} alone should launch at {n} x {m}, with "
+             f"finite targets: {counts}")
+    la = torch.log(marginal(None, n, dev))
+    lb = torch.log(marginal(None, m, dev))
+    Mr = -sqeuclidean_cdist(Xs, Ys) / ot.reg
+    res = sinkhorn_checks(la, lb, Mr, ot, LONG_ROWS_NAME,
+                          SINKHORN_LONG_ROWS_ERR_ATOL)
+    return {"name": LONG_ROWS_NAME, "route": "cuda",
+            "source": SINKHORN_SOURCE, "replaces": SINKHORN_REPLACES,
+            "launches": counts[LONG_ROWS_NAME], "max_abs_err": res["p_err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            **sinkhorn_bound(n, m, res["sweeps"]), "library_ms": None}
 
 
 def prefetch_phase(dev) -> None:
@@ -1161,6 +1331,7 @@ def main() -> None:
     utm_cube = plan.warp(raw)
     samples = plan.ot_samples(utm_cube, s2, plan.generator(0))
     kernels.append(sinkhorn_phase(*samples, plan.statics.ot))
+    kernels.append(sinkhorn_long_rows_phase(dev, plan.statics.ot))
     del samples, utm_cube
 
     # -- 5c. the ot_affine plan --------------------------------------------

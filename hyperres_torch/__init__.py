@@ -22,17 +22,22 @@ Hand-written kernels, built with ``nvcc`` at first use
 
 - ``csrc/scanline_warp.cu``: the two-pass scanline warp, banded and
   dense routes (``kernels.banded``);
-- ``csrc/sinkhorn_duals.cu``: the log-domain Sinkhorn sweeps
-  (``kernels.sinkhorn_duals``);
+- ``csrc/sinkhorn_duals.cu``: the log-domain Sinkhorn sweeps, one read
+  of the cost matrix per sweep, or two for rows too long to keep on
+  chip (``kernels.sinkhorn_duals``);
 - ``csrc/sr_predict.cu``: the fused ridge-SR predict to u16, in the
-  product and serving layouts (``kernels.sr_predict``);
+  product and serving layouts, its contraction on the tensor cores as
+  three TF32 products (``kernels.sr_predict``);
 - ``csrc/quantize_u16.cu``: float32 to u16 codes with a nodata sentinel,
   behind every u16 product (``kernels.quantize``);
 - ``csrc/srf_synthesize.cu``: SRF band synthesis with the invalid-row
   fill (``kernels.srf``).
 
 On a CUDA tensor a kernel wrapper launches its kernel or raises; on a
-CPU tensor it runs the kernel's plain PyTorch version.
+CPU tensor it runs the kernel's plain PyTorch version. The entry points
+(plans, models, ``fusion.ot``, ``ortho``, ``io.ingest``) take a
+``device`` that defaults to the current CUDA device and raise where
+there is none; ``device="cpu"`` asks for the CPU.
 """
 
 from . import device  # noqa: F401  (sets the f32 precision policy)

@@ -11,7 +11,8 @@
 //
 // and then g = log_b - log(max(s_col, 1e-37)) + g. The host runs groups
 // of sweeps and reads err = sum_i err_i of the last sweep of each group
-// (kernels/sinkhorn_duals.py holds the loop and the stopping rule).
+// (kernels/sinkhorn_duals.py holds the loop, the stopping rule and the
+// choice of route).
 //
 // Replaces the TPU kernel pallas_sinkhorn_duals
 // (hyperres/kernels/pallas_ops.py:605), which keeps the whole cost matrix
@@ -21,11 +22,35 @@
 // add exact zeros; here nothing is padded.
 //
 // What bounds it on Hopper: memory. At the fused plan's shape (n = m =
-// 5000, OTConfig()) Mr is 100 MB, twice the 50 MB L2, so each sweep
-// streams it from HBM: once for the row kernel (its second pass over a
-// 20 KB row is an L2 hit) and once for the column kernel, ~200 MB, about
-// 60 us at 3.35 TB/s. The exps (2 n m expf per sweep) stay below that.
-// What the design does about it:
+// 5000, OTConfig()) Mr is 100 MB, twice the 50 MB L2, so every sweep
+// streams it from HBM: one read is ~30 us at 3.35 TB/s. The exps (n m
+// expf per sweep) stay below that. Two routes, chosen by shape on the
+// host (sinkhorn_duals.py:sinkhorn_route):
+//
+// One pass (m <= kOnePassCols): Mr is read once per sweep, as the TPU
+// kernel reads it.
+//   - one persistent block of 512 threads per SM owns a fixed contiguous
+//     range of rows; it brings a group of 2 rows at a time into shared
+//     memory through a ring of 4 buffers: the next 3 groups' copies are
+//     in flight while this group is worked on (with one group ahead the
+//     block waited on memory latency). A group is one contiguous span, so
+//     it goes by 16-byte cp.async.cg (L2 only) whatever m is, with <= 3
+//     4-byte copies at each end (4-byte cp.async.ca through L1, for every
+//     element, reached ~1/4 of HBM peak);
+//   - thread t owns columns j = t + 512 k (k < 12) for the arithmetic and
+//     keeps g_j, its column partials and the group's z / E values in
+//     registers, so shared memory is read once per element;
+//   - per group: z = Mr + g and the rows' maxima (one block reduction for
+//     all the group's rows), then E = exp(z - rmax) in place and the rows'
+//     sums (one reduction), then f_i, err_i and u_i = a_i / rowsum_i as in
+//     the row kernel below; then the column partials reuse E, s_j += E_ij
+//     u_i: one expf per element (the two-read route takes two);
+//   - at the end each block writes one row of partials (G x m, G = the
+//     blocks, 2.6 MB at 5000^2 on 132 SMs) and sinkhorn_g_rows_kernel sums
+//     them in a fixed order (8 contiguous runs of rows, then the 8 run
+//     sums): two launches per sweep, HBM traffic one read of Mr plus the
+//     partials.
+// Long rows (the rest): the two-read kernels, three launches per sweep.
 //   - row kernel: one block per row, a max pass and an exp/sum pass,
 //     reads along the row coalesced; it writes f_i, rmax_i, u_i = a_i /
 //     rowsum_i and err_i;
@@ -36,7 +61,10 @@
 //     per chunk; the chunks are sized to fill the card;
 //   - g kernel: sums the chunks' partials in chunk order and updates g.
 // Every reduction runs in a fixed order (no float atomics), so two runs
-// give the same bits. exp and log are the full-precision expf / logf.
+// on one card give the same bits; the one-pass result depends on the
+// number of blocks (the card's SM count), so it is reproducible on one
+// card model, not across SM counts. exp and log are the full-precision
+// expf / logf.
 //
 // C interface (built with nvcc into a shared library, loaded by ctypes):
 // launches on the caller's stream, allocates nothing, and returns the
@@ -51,6 +79,12 @@ namespace {
 constexpr int kRowThreads = 256;
 constexpr int kColThreads = 256;
 constexpr int kSumThreads = 1024;
+constexpr int kOneThreads = 512;               // one-pass block
+constexpr int kOneWarps = kOneThreads / 32;
+constexpr int kSlots = 12;                     // columns per thread
+constexpr int kOnePassCols = kSlots * kOneThreads;   // 6144
+constexpr int kMaxRows = 2;                    // rows per group
+constexpr int kStages = 4;                     // groups in shared memory
 
 template <bool kMax>
 __device__ __forceinline__ float combine(float a, float b) {
@@ -140,9 +174,228 @@ sinkhorn_g_kernel(const float* __restrict__ partial,
   const int64_t j = (int64_t)blockIdx.x * kColThreads + threadIdx.x;
   if (j >= m) return;
   float s = 0.0f;
+  // unrolled so that the loads are in flight together; the sum keeps its
+  // order
+#pragma unroll 16
   for (int c = 0; c < chunks; ++c) s += partial[(int64_t)c * m + j];
   // the floor must be a normal f32 (1e-38 is subnormal)
   g[j] = (log_b[j] - logf(fmaxf(s, 1e-37f))) + g[j];
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// Shift (in floats, 0-3) at which a span starting at src is placed in a
+// 16-byte-aligned buffer so that its 16-byte-aligned body stays aligned.
+__device__ __forceinline__ int span_shift(const float* src) {
+  return (int)(((uintptr_t)src >> 2) & 3);
+}
+
+// Copies the n floats at src into shared memory at dst + span_shift(src):
+// the 16-byte-aligned body by 16-byte cp.async (through L2 only), the <= 3
+// floats at each end by 4-byte ones. Every thread of the block takes part.
+__device__ __forceinline__ void copy_span(float* dst, const float* src,
+                                          int64_t n) {
+  const int sh = span_shift(src);
+  const int head = (int)((4 - sh) & 3) < n ? (4 - sh) & 3 : (int)n;
+  const int64_t body = (n - head) / 4;
+  const int64_t tail0 = head + 4 * body;
+  dst += sh;
+  if (threadIdx.x < head) cp_async4(dst + threadIdx.x, src + threadIdx.x);
+  for (int64_t q = threadIdx.x; q < body; q += blockDim.x) {
+    cp_async16(dst + head + 4 * q, src + head + 4 * q);
+  }
+  if (threadIdx.x < n - tail0) {
+    cp_async4(dst + tail0 + threadIdx.x, src + tail0 + threadIdx.x);
+  }
+}
+
+// A reduction of each of the group's rows over the block, in a fixed
+// order: a butterfly inside each warp, the warps' results through shared
+// memory, then a butterfly over those in every warp, so every thread gets
+// the same result. `red` is kMaxRows x kOneWarps; a caller alternates two
+// buffers so that one barrier per reduction suffices.
+template <bool kMax>
+__device__ __forceinline__ void reduce_rows(float (&v)[kMaxRows],
+                                            float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      v[r] = combine<kMax>(v[r], __shfl_xor_sync(0xffffffffu, v[r], o));
+    }
+    if (lane == 0) red[r * kOneWarps + warp] = v[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) {
+    v[r] = red[r * kOneWarps + (lane & (kOneWarps - 1))];
+#pragma unroll
+    for (int o = kOneWarps / 2; o > 0; o >>= 1) {
+      v[r] = combine<kMax>(v[r], __shfl_xor_sync(0xffffffffu, v[r], o));
+    }
+  }
+}
+
+// One sweep's row update and column partials from one read of Mr; rows
+// [blockIdx.x * rows_per_block, +rows_per_block), `rows` (<= kMaxRows) of
+// them per group.
+__global__ void __launch_bounds__(kOneThreads, 1)
+sinkhorn_onepass_kernel(const float* __restrict__ Mr,
+                        const float* __restrict__ g,
+                        const float* __restrict__ log_a,
+                        float* __restrict__ f, float* __restrict__ err_row,
+                        float* __restrict__ partial, int64_t n, int m,
+                        int64_t rows_per_block, int rows) {
+  extern __shared__ float sm[];
+  float* red_max = sm;
+  float* red_sum = red_max + kMaxRows * kOneWarps;
+  // kStages buffers of rows * m + 4 floats, 16-byte aligned
+  float* buf = red_sum + kMaxRows * kOneWarps;
+  const int64_t buf_len = ((int64_t)rows * m + 4 + 3) / 4 * 4;
+  const int tid = threadIdx.x;
+  // the warp's first column: slot loops stop where it passes m (warp-
+  // uniform), so no warp issues slots that hold no column
+  const int warp_j0 = tid & ~31;
+  const int64_t i0 = (int64_t)blockIdx.x * rows_per_block;
+  const int64_t i1 = i0 + rows_per_block < n ? i0 + rows_per_block : n;
+  const int64_t n_groups = i1 > i0 ? (i1 - i0 + rows - 1) / rows : 0;
+
+  float gj[kSlots], acc[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int j = tid + k * kOneThreads;
+    gj[k] = j < m ? g[j] : 0.0f;
+    acc[k] = 0.0f;
+  }
+  // group q (rows [i0 + q rows, +rows), one contiguous span of Mr) into
+  // buffer q % kStages, as one commit group (empty past the last group,
+  // so that every iteration waits on the same count)
+  auto issue = [&](int64_t q) {
+    if (q < n_groups) {
+      const int64_t r0 = i0 + q * rows;
+      const int64_t nrows = i1 - r0 < rows ? i1 - r0 : rows;
+      copy_span(buf + (q % kStages) * buf_len, Mr + r0 * m, nrows * m);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+#pragma unroll
+  for (int q = 0; q < kStages - 1; ++q) issue(q);
+  for (int64_t q = 0; q < n_groups; ++q) {
+    // buffer (q - 1) % kStages held group q - 1, which every thread read
+    // into registers before that group's first reduction barrier
+    issue(q + kStages - 1);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+    __syncthreads();   // group q's copies, made by all threads, landed
+    const int64_t r0 = i0 + q * rows;
+    const int nr = (int)(i1 - r0 < rows ? i1 - r0 : rows);
+    const float* grp = buf + (q % kStages) * buf_len + span_shift(Mr + r0 * m);
+    // the group's log marginals and duals, loaded before the reductions
+    // need them (a load after a barrier would stall every warp)
+    float la[kMaxRows], fo[kMaxRows];
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r) {
+      la[r] = r < nr ? log_a[r0 + r] : 0.0f;
+      fo[r] = r < nr ? f[r0 + r] : 0.0f;
+    }
+
+    // z = Mr + g into registers, the rows' maxima
+    float z[kMaxRows][kSlots], mx[kMaxRows];
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r) {
+      mx[r] = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        const int j = tid + k * kOneThreads;
+        z[r][k] = -INFINITY;
+        if (r < nr && warp_j0 + k * kOneThreads < m && j < m) {
+          z[r][k] = grp[r * m + j] + gj[k];
+          mx[r] = fmaxf(mx[r], z[r][k]);
+        }
+      }
+    }
+    reduce_rows<true>(mx, red_max);
+
+    // E = exp(z - rmax) in place, the rows' sums
+    float s[kMaxRows];
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r) {
+      s[r] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        if (r < nr && warp_j0 + k * kOneThreads < m) {
+          z[r][k] = expf(z[r][k] - mx[r]);   // exp(-inf) = 0 off the row
+          s[r] += z[r][k];
+        }
+      }
+    }
+    reduce_rows<false>(s, red_sum);
+
+    // f_i, err_i, u_i per row, then the column partials from E
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r) {
+      if (r >= nr) break;
+      const int64_t i = r0 + r;
+      const float rlse = mx[r] + logf(s[r]);
+      const float a = expf(la[r]);
+      const float u = a / s[r];
+      if (tid == 0) {
+        err_row[i] = fabsf(expf(fo[r] + rlse) - a);
+        f[i] = la[r] - rlse;
+      }
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        if (warp_j0 + k * kOneThreads < m) acc[k] += z[r][k] * u;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int j = tid + k * kOneThreads;
+    if (j < m) partial[(int64_t)blockIdx.x * m + j] = acc[k];
+  }
+}
+
+// The one-pass route's g update: a block per 32 columns; warp w sums the
+// partial rows [w c / 8, (w + 1) c / 8) for its lane's column, then warp 0
+// adds the 8 warp sums in warp order.
+__global__ void __launch_bounds__(256)
+sinkhorn_g_rows_kernel(const float* __restrict__ partial,
+                       const float* __restrict__ log_b, float* __restrict__ g,
+                       int64_t m, int rows) {
+  __shared__ float sh[8][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t j = (int64_t)blockIdx.x * 32 + lane;
+  const int c0 = warp * rows / 8;
+  const int c1 = (warp + 1) * rows / 8;
+  float s = 0.0f;
+  if (j < m) {
+#pragma unroll 8
+    for (int c = c0; c < c1; ++c) s += partial[(int64_t)c * m + j];
+  }
+  sh[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && j < m) {
+    float t = sh[0][lane];
+#pragma unroll
+    for (int w = 1; w < 8; ++w) t += sh[w][lane];
+    g[j] = (log_b[j] - logf(fmaxf(t, 1e-37f))) + g[j];
+  }
 }
 
 __global__ void __launch_bounds__(kSumThreads)
@@ -156,9 +409,65 @@ sum_kernel(const float* __restrict__ x, int64_t n, float* __restrict__ out) {
 
 }  // namespace
 
-// Runs `sweeps` Sinkhorn sweeps on f (n) and g (m) in place, then writes
-// the last sweep's row-marginal error to err[0]. Scratch: rmax, u, err_row
-// (n each) and partial (chunks x m); rows_per_chunk = ceil(n / chunks).
+// The current device's SM count and the shared memory a block may use,
+// the inputs of the host's route rule.
+extern "C" int sinkhorn_device_limits(int* sms, int* smem_per_block) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(smem_per_block,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  }
+  return (int)e;
+}
+
+// Shared memory of a one-pass block holding `rows` rows per group.
+static size_t onepass_smem(long long m, int rows) {
+  return (size_t)(2 * kMaxRows * kOneWarps
+                  + kStages * ((rows * m + 7) / 4 * 4)) * sizeof(float);
+}
+
+// The one-pass route: `sweeps` sweeps on f (n) and g (m) in place, then
+// the last sweep's row-marginal error in err[0]. `blocks` blocks of
+// rows_per_block rows (blocks * rows_per_block >= n, no block empty),
+// `rows` rows per group. Scratch: err_row (n) and partial (blocks x m).
+extern "C" int sinkhorn_duals_onepass_sweeps(
+    const float* Mr, const float* log_a, const float* log_b, float* f,
+    float* g, float* err_row, float* partial, float* err, long long n,
+    long long m, int blocks, long long rows_per_block, int rows, int sweeps,
+    void* stream) {
+  if (n <= 0 || m <= 0 || m > kOnePassCols || blocks <= 0 || rows < 1
+      || rows > kMaxRows || rows_per_block < 1
+      || (long long)blocks * rows_per_block < n || sweeps < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = onepass_smem(m, rows);
+  cudaError_t e = cudaFuncSetAttribute(
+      sinkhorn_onepass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned int g_blocks = (unsigned int)((m + 31) / 32);
+  for (int k = 0; k < sweeps; ++k) {
+    sinkhorn_onepass_kernel<<<blocks, kOneThreads, smem, st>>>(
+        Mr, g, log_a, f, err_row, partial, n, (int)m, rows_per_block, rows);
+    sinkhorn_g_rows_kernel<<<g_blocks, 256, 0, st>>>(partial, log_b, g, m,
+                                                     blocks);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  sum_kernel<<<1, kSumThreads, 0, st>>>(err_row, n, err);
+  return (int)cudaGetLastError();
+}
+
+// The long-rows route: `sweeps` Sinkhorn sweeps on f (n) and g (m) in
+// place, then the last sweep's row-marginal error in err[0]. Scratch:
+// rmax, u, err_row (n each) and partial (chunks x m); rows_per_chunk =
+// ceil(n / chunks).
 extern "C" int sinkhorn_duals_sweeps(
     const float* Mr, const float* log_a, const float* log_b, float* f,
     float* g, float* rmax, float* u, float* err_row, float* partial,

@@ -34,10 +34,15 @@ def reset_launch_counts() -> None:
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``device`` as a :class:`torch.device`; ``None`` means the CPU.
-    A CUDA device that is not there raises instead of falling back."""
-    dev = torch.device("cpu" if device is None else device)
+    """``device`` as a :class:`torch.device`; ``None`` means the current
+    CUDA device, so the port's entry points run on the card unless the
+    caller asks for ``"cpu"``. A CUDA device that is not there, asked for
+    or by default, raises instead of falling back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not "
-                           "available")
+        raise RuntimeError(f"device {dev} requested (None means the card) "
+                           "but CUDA is not available; pass device='cpu' "
+                           "to run on the CPU")
+    if device is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

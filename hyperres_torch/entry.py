@@ -39,7 +39,8 @@ def entry(device: Union[str, torch.device, None] = None
                      Tuple[torch.Tensor]]:
     """(forward, example_args): the fitted model (its call is the
     forward: standardise -> cubic monomial expansion -> ridge matmul ->
-    sigmoid) and the (8192, 10) batch, both on ``device``."""
+    sigmoid) and the (8192, 10) batch, both on ``device`` (by default the
+    current CUDA device; ``"cpu"`` for the CPU)."""
     X, Y, x = entry_data()
     model = RidgeSpectralSR(N_IN, EMIT_BANDS, RidgeSRConfig(degree=3),
                             device=device).fit(X, Y)

@@ -12,7 +12,8 @@
 NumPy in and out, as in the reference. Sampling runs on the host with
 NumPy's generator, so both packages draw the same samples from the same
 seed; the Sinkhorn plan, the barycentric targets and the fits run in
-PyTorch on ``device`` (the CPU by default).
+PyTorch on ``device`` (by default the current CUDA device; pass
+``device="cpu"`` for the CPU).
 """
 
 from __future__ import annotations

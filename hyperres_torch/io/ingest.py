@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.constants import NO_DATA_VALUE
+from ..device import resolve_device
 from .pipeline import PrefetchToDevice
 
 U16_SENTINEL = 65535  # invalid-pixel marker (tiles_helpers convention)
@@ -165,7 +166,7 @@ def stream_cube_to_device(
     (bit-exact). ``device``: default the current CUDA device.
     """
     h, w, n_bands = shape_hwb
-    dev = torch.device("cuda" if device is None else device)
+    dev = resolve_device(device)
     out = torch.full((h, w, n_bands), float(np.float32(nodata)),
                      dtype=torch.float32, device=dev)
 

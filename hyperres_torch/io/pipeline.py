@@ -29,6 +29,8 @@ from typing import Any, Callable, Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 def _map(item: Any, leaf: type, fn: Callable) -> Any:
     """``fn`` applied to every ``leaf`` of a nested tuple / list / dict
@@ -75,7 +77,7 @@ class PrefetchToDevice:
                  device=None, transform: Optional[Callable] = None):
         self.source = source
         self.depth = max(1, int(depth))
-        self.device = torch.device("cuda" if device is None else device)
+        self.device = resolve_device(device)
         self.transform = transform
         self._q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         self._thread: Optional[threading.Thread] = None

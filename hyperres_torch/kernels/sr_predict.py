@@ -26,13 +26,27 @@ wrapper launches the hand-written kernel ``csrc/sr_predict.cu`` (or
 raises); on a CPU tensor it runs :func:`sr_predict_u16_reference`, the
 plain PyTorch version, which goes over the pixels in batches: gather
 expansion, f32 matmul, sigmoid, ``quantize_reflectance_u16``.
+
+The kernel does the contraction on the tensor cores in TF32, as three
+terms (``A_hi B_hi + A_hi B_lo + A_lo B_hi`` with ``hi`` / ``lo`` the
+round-to-nearest TF32 split), which keeps f32-level accuracy. Its K axis
+is the monomials in pairs that share every factor but the last
+(:func:`sr_pair_table`), so a thread forms two monomials from one prefix
+product; W's rows follow that order, with zero rows for padding. It
+keeps W's hi and lo for its band tile in shared memory, which limits the
+number of K columns: :func:`sr_tile_bands` gives the tile (32 bands, or
+16 for more columns) and :func:`sr_k_columns` the columns of a factor
+table (Bx = 10: F = 285 at degree 3 takes 320 columns, F = 1000 at
+degree 4 takes 1184; Bx = 12 at degree 4, F = 1819, is over the limit).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import weakref
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..device import count_launch
@@ -45,6 +59,101 @@ LAYOUTS = ("cmajor", "rowmajor")
 #: the kernel's limits (csrc/sr_predict.cu: kMaxBx, kMaxDegree)
 MAX_BANDS_IN = 16
 MAX_DEGREE = 4
+#: shared memory a CTA may use on Hopper, and the kernel's layout of it
+#: (csrc/sr_predict.cu: kMaxSmem, smem_bytes): W hi and lo (8 bytes per
+#: K column and band), a pair entry per two columns (8 bytes, 16 at degree
+#: 4), the inputs' mean and std, and per warpgroup its inputs, validity
+#: and staged u16 tile
+_MAX_SMEM = 232448
+_WARPGROUPS = 2
+
+
+def _smem_bytes(bands: int, k_cols: int, degree: int) -> int:
+    tile = 64
+    wg = ((1 + MAX_BANDS_IN) * (tile + 8) * 4 + 2 * tile
+          + -(-bands * (tile + 2) * 2 // 16) * 16)
+    pair = 8 if degree <= 3 else 16
+    return (2 * bands * k_cols * 4 + k_cols // 2 * pair
+            + 2 * MAX_BANDS_IN * 4 + _WARPGROUPS * wg)
+
+
+def sr_tile_bands(k_cols: int, degree: int) -> int:
+    """Output bands per CTA of the kernel for ``k_cols`` K columns (a
+    multiple of 32) at ``degree``: 32 when W's TF32 hi and lo for 32
+    bands fit in shared memory with the rest, else 16, else 0 (not
+    taken; 1632 columns at most at degree <= 3, 1600 at degree 4)."""
+    for bands in (32, 16):
+        if _smem_bytes(bands, k_cols, degree) <= _MAX_SMEM:
+            return bands
+    return 0
+
+
+def sr_pair_table(factors: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The kernel's K order for an (F, degree) factor table (entries are
+    rows of [1, x_0, ..., x_{Bx-1}]). Each monomial is its factors other
+    than the constant, multiplied left to right: a prefix (all but the
+    last) times the last. Monomials with the same prefix are paired, in
+    blocks of 8 as (i, i + 4), so that the four pairs of a k8 step read
+    four rows that fall in different shared-memory banks; a monomial left
+    over is paired with padding. The pairs are padded to a multiple of 16
+    (32 K columns).
+
+    Returns ``pairs`` (P, 4) int32 for degree <= 3 ((P, 5) at degree 4):
+    the prefix rows padded with the constant row 0 to 2 (3), then the two
+    last factors' rows; and ``src`` (2P,) int32: the W row (the monomial)
+    of each K column, -1 for padding. Pair 4 s + t fills K columns 8 s + t
+    and 8 s + t + 4. Multiplying by the constant 1 is exact, so each
+    monomial's value is the plain version's."""
+    fac = np.asarray(factors)
+    width = 4 if fac.shape[1] <= 3 else 5
+    groups = {}
+    for m, row in enumerate(fac.tolist()):
+        nz = [r for r in row if r != 0] or [0]
+        prefix = tuple(nz[:-1]) + (0,) * (width - 1 - len(nz))
+        groups.setdefault(prefix, []).append((m, nz[-1]))
+    pairs = []
+    for prefix, members in groups.items():
+        for b0 in range(0, len(members), 8):
+            blk = members[b0:b0 + 8]
+            h = -(-len(blk) // 2)
+            pairs += [(prefix, blk[i], blk[i + h] if i + h < len(blk)
+                       else None) for i in range(h)]
+    n_pairs = -(-len(pairs) // 16) * 16
+    rows = np.zeros((n_pairs, width), np.int32)
+    src = np.full(2 * n_pairs, -1, np.int32)
+    for q, (prefix, a, b) in enumerate(pairs):
+        rows[q, :width - 2] = prefix
+        col = 8 * (q // 4) + q % 4
+        rows[q, width - 2], src[col] = a[1], a[0]
+        if b is not None:
+            rows[q, width - 1], src[col + 4] = b[1], b[0]
+    return rows, src
+
+
+def sr_k_columns(factors: np.ndarray) -> int:
+    """K columns of the kernel for a factor table: twice its pairs."""
+    return 2 * sr_pair_table(factors)[0].shape[0]
+
+
+#: per factor tensor (by id, with a weak reference that drops the entry
+#: when the tensor goes): its version and its pair table on its device
+_PAIRS: Dict[int, tuple] = {}
+
+
+def _device_pairs(factors: torch.Tensor):
+    """:func:`sr_pair_table` of ``factors`` as int32 tensors on its
+    device, cached per tensor and version (one read back to the host per
+    factor table)."""
+    key = id(factors)
+    hit = _PAIRS.get(key)
+    if hit is None or hit[0]() is not factors or hit[1] != factors._version:
+        rows, src = sr_pair_table(factors.cpu().numpy())
+        hit = (weakref.ref(factors, lambda _, k=key: _PAIRS.pop(k, None)),
+               factors._version,
+               torch.from_numpy(rows).to(factors.device),
+               torch.from_numpy(src).to(factors.device))
+        _PAIRS[key] = hit
+    return hit[2], hit[3]
 
 
 def _check(X: torch.Tensor, x_mean: torch.Tensor, x_std: torch.Tensor,
@@ -145,17 +254,22 @@ def sr_predict_u16(X: torch.Tensor, x_mean: torch.Tensor,
     if bx > MAX_BANDS_IN or degree > MAX_DEGREE:
         raise ValueError(f"the kernel takes Bx <= {MAX_BANDS_IN} and "
                          f"degree <= {MAX_DEGREE}, got {bx} and {degree}")
+    pairs, src = _device_pairs(factors)
+    k_cols = 2 * pairs.shape[0]
+    if not sr_tile_bands(k_cols, degree):
+        raise ValueError(f"the kernel's W tile does not fit shared memory: "
+                         f"F = {f} monomials take {k_cols} K columns at "
+                         f"degree {degree}")
     from ._build import load_library
 
     lib = load_library("sr_predict")
     fn = lib.sr_predict_u16_f32
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong]
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
                    + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
                    + [ctypes.c_int, ctypes.c_double, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     mean, std = x_mean.contiguous(), x_std.contiguous()
     Wc, ic = W.contiguous(), intercept.contiguous()
-    fac = factors.to(torch.int32).contiguous()
     mask = None if valid is None else valid.contiguous()
     if layout == "cmajor":
         out = torch.empty((by, n), dtype=torch.uint16, device=X.device)
@@ -169,8 +283,9 @@ def sr_predict_u16(X: torch.Tensor, x_mean: torch.Tensor,
         stream = torch.cuda.current_stream(X.device).cuda_stream
         rc = fn(X.data_ptr(), None if mask is None else mask.data_ptr(),
                 mean.data_ptr(), std.data_ptr(), Wc.data_ptr(),
-                ic.data_ptr(), fac.data_ptr(), out.data_ptr(), n, bx, by,
-                f, degree, x_sp, x_sb, q_sp, q_sb, int(nodata is not None),
+                ic.data_ptr(), pairs.data_ptr(), src.data_ptr(),
+                out.data_ptr(), n, bx, by, pairs.shape[0], degree, x_sp,
+                x_sb, q_sp, q_sb, int(nodata is not None),
                 0.0 if nodata is None else float(nodata), stream)
     if rc != 0:
         raise RuntimeError(f"sr_predict_u16 kernel launch failed: CUDA "

@@ -191,7 +191,7 @@ def orthorectify_granule(
     tag: Optional[str] = None,
     save_info_path: Union[str, Path, None] = None,
     keep_device_cube: bool = False,
-    device: Union[str, torch.device] = "cuda",
+    device: Union[str, torch.device, None] = None,
 ) -> OrthoResult:
     """Full DATA (+ optional LOC / OBS) ortho export onto the S2-anchored
     UTM 60 m grid (``pipeline.py:178``). Returns the main projected ENVI
@@ -636,7 +636,7 @@ def convert_granules(
     mask_files=None,
     config: OrthoConfig = OrthoConfig(),
     export_loc: bool = False,
-    device: Union[str, torch.device] = "cuda",
+    device: Union[str, torch.device, None] = None,
 ):
     """Batch ortho conversion — the ``convert_emit_nc_to_envi`` wrapper
     (emit_proj.py:1303-1356, ``pipeline.py:722``): run every granule,

@@ -255,7 +255,7 @@ def slice_run():
     js2 = jplan.prepare_s2(sc["s2_dn"])
     jout = {k: np.asarray(v) for k, v in jplan(sc["raw"], js2).items()}
     jref = np.asarray(jplan.s2_reference_10m(jout["utm_cube"], js2))
-    tplan = tfused.FusedOrthoFusionPlan(*args, **kw)
+    tplan = tfused.FusedOrthoFusionPlan(*args, device="cpu", **kw)
     ts2 = tplan.prepare_s2(sc["s2_dn"])
     tout = tplan(sc["raw"], ts2)
     tref = tplan.s2_reference_10m(tout["utm_cube"], ts2)
@@ -340,7 +340,8 @@ def test_plan_from_jax_state(slice_run):
             np.testing.assert_array_equal(native[k], v)
         else:
             assert native[k] == v
-    plan = tfused.FusedOrthoFusionPlan.from_state(state, tplan.statics)
+    plan = tfused.FusedOrthoFusionPlan.from_state(state, tplan.statics,
+                                                  device="cpu")
     out = plan(slice_run["scene"]["raw"], slice_run["ts2"])
     for k, v in slice_run["tout"].items():
         torch.testing.assert_close(out[k], v, rtol=0, atol=0,
@@ -354,10 +355,12 @@ def test_plan_from_jax_state(slice_run):
     jw = jdense.warp_statics
     assert jw.backend == "pallas"
     tdense = tfused.FusedOrthoFusionPlan(*_plan_args(sc),
-                                         warp_kernel="pallas", **kw)
+                                         warp_kernel="pallas", device="cpu",
+                                         **kw)
     plan = tfused.FusedOrthoFusionPlan.from_state(
         _jax_state(jdense), tplan.statics,
-        warp_statics=tfused.WarpStatics(jw.resampling, jw.backend))
+        warp_statics=tfused.WarpStatics(jw.resampling, jw.backend),
+        device="cpu")
     assert plan.warp_statics == tdense.warp_statics
     out = plan(sc["raw"], slice_run["ts2"])
     for k, v in tdense(sc["raw"], slice_run["ts2"]).items():
@@ -378,7 +381,7 @@ def test_plan_warp_kernels(slice_run):
     for wk, backend in (("pallas", "pallas"),
                         ("pallas_banded", "pallas_banded")):
         plan = tfused.FusedOrthoFusionPlan(*_plan_args(sc), warp_kernel=wk,
-                                           **kw)
+                                           device="cpu", **kw)
         assert plan.warp_statics.backend == backend
         u = plan.warp(sc["raw"])
         assert torch.equal(u == -9999.0, base == -9999.0)
@@ -388,7 +391,8 @@ def test_plan_warp_kernels(slice_run):
         tfused.FusedOrthoFusionPlan.from_state(
             slice_run["tplan"].state_dict_numpy(),
             slice_run["tplan"].statics,
-            warp_statics=tfused.WarpStatics("cubic", "taploop"))
+            warp_statics=tfused.WarpStatics("cubic", "taploop"),
+            device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -402,7 +406,7 @@ def affine_run(slice_run):
     jout = JaxFusionPlan(*args, **dict(kw, config=JCFG))(
         slice_run["jout"]["utm_cube"],
                                       slice_run["js2"])
-    tplan = tfused.FusedFusionPlan(*args, **kw)
+    tplan = tfused.FusedFusionPlan(*args, device="cpu", **kw)
     tout = tplan(slice_run["tout"]["utm_cube"], slice_run["ts2"])
     return dict(jout={k: np.asarray(v) for k, v in jout.items()},
                 tout=tout, tplan=tplan)
@@ -447,13 +451,17 @@ def test_plan_rejects_unported_configs(slice_run):
     args = (sc["ortho_grid"], sc["utm60"], sc["s2_grid"],
             sc["raw"].shape[:2], sc["glt"], sc["wavelengths"])
     with pytest.raises(tfused.FusedUnsupported):
-        tfused.FusedOrthoFusionPlan(*args, fusion_method="linear")
+        tfused.FusedOrthoFusionPlan(*args, fusion_method="linear",
+                                    device="cpu")
     with pytest.raises(tfused.FusedUnsupported):
-        tfused.FusedOrthoFusionPlan(*args, fusion_method="histogram")
+        tfused.FusedOrthoFusionPlan(*args, fusion_method="histogram",
+                                    device="cpu")
     with pytest.raises(tfused.FusedUnsupported):
-        tfused.FusedOrthoFusionPlan(*args, warp_kernel="taploop")
+        tfused.FusedOrthoFusionPlan(*args, warp_kernel="taploop",
+                                    device="cpu")
     with pytest.raises(tfused.FusedUnsupported):
-        tfused.FusedOrthoFusionPlan(*args, synth_method="box")
+        tfused.FusedOrthoFusionPlan(*args, synth_method="box",
+                                    device="cpu")
 
 
 def test_identity_fallback_below_min_pixels(slice_run):
@@ -465,7 +473,7 @@ def test_identity_fallback_below_min_pixels(slice_run):
         sc["utm60"], sc["s2_grid"], sc["wavelengths"], sc["good_mask"],
         config=cfg, s2_nodata=65535.0, s2_scale=1e-4,
         return_intermediates=True,
-        srf=builtin_srf("S2A", bands=["B2", "B3", "B4"]))
+        srf=builtin_srf("S2A", bands=["B2", "B3", "B4"]), device="cpu")
     out = plan(slice_run["tout"]["utm_cube"], slice_run["ts2"])
     ident = np.zeros((3, 5), np.float32)
     ident[:, -2] = 1.0

@@ -219,6 +219,63 @@ def test_ot_engine_budget_rule(rng, monkeypatch):
     assert launch_counts.get(tduals.KERNEL_NAME, 0) == 0
 
 
+#: an H100's SMs and the shared memory a block may use
+H100 = (132, 232448)
+
+
+@pytest.mark.parametrize("n,m", [
+    (5000, 5000),                                   # the plan's OT stage
+    (OTConfig().n_samples, OTConfig().n_samples),
+    (400, 400), (150, 170), (96, 96), (1, 1),       # the tests' shapes
+    (5000, tduals.ONE_PASS_COLS),                   # the limit
+])
+def test_sinkhorn_route_one_pass(n, m):
+    """Up to ONE_PASS_COLS (6144) columns the one-pass route takes the
+    shape on an H100: min(n, 132) blocks of ceil(n / blocks) rows, none
+    empty, 2 rows per group (a ring of 4 groups of 2 rows fits in shared
+    memory up to m ~7.2k)."""
+    route = tduals.sinkhorn_route(n, m, *H100)
+    assert route.name == tduals.ONE_PASS
+    assert route.blocks <= min(n, 132)
+    assert route.blocks * route.rows_per_block >= n
+    assert (route.blocks - 1) * route.rows_per_block < n
+    assert route.group_rows == 2
+    if (n, m) == (5000, 5000):
+        assert route[1:] == (132, 38, 2)
+
+
+@pytest.mark.parametrize("n,m", [
+    (128, 200_000),     # the longest rows the engine budget admits at n <= 128
+    (128, 100_000),     # chip_smoke.py's long-rows check
+    (5000, tduals.ONE_PASS_COLS + 1),
+    (1, 6145),
+])
+def test_sinkhorn_route_long_rows(n, m):
+    """Past ONE_PASS_COLS columns the two-read kernels take the shape;
+    the engine budget admits such rows (round_up(n, 128) * round_up(m,
+    128) * 4 <= PALLAS_SINKHORN_VMEM_BUDGET for the first three)."""
+    assert tduals.sinkhorn_route(n, m, *H100) == (tduals.LONG_ROWS, 0, 0, 0)
+    if n == 128:
+        assert (128 * -(-m // 128) * 128 * 4
+                <= tduals.PALLAS_SINKHORN_VMEM_BUDGET)
+
+
+def test_sinkhorn_route_shared_memory_limit():
+    """On a card with less shared memory the ring must hold a group of at
+    least one row: at 48 KB a block takes m <= 3049 in one pass, with
+    one row per group past m = 1524, and long rows beyond; with fewer
+    SMs, fewer blocks of more rows."""
+    small = 48 * 1024
+    assert tduals.sinkhorn_route(5000, 3049, 132, small).name == \
+        tduals.ONE_PASS
+    assert tduals.sinkhorn_route(5000, 3050, 132, small).name == \
+        tduals.LONG_ROWS
+    assert tduals.sinkhorn_route(5000, 1524, 132, small).group_rows == 2
+    assert tduals.sinkhorn_route(5000, 1525, 132, small).group_rows == 1
+    assert tduals.sinkhorn_route(5000, 5000, 114, H100[1])[1:] == (
+        114, 44, 2)
+
+
 def test_affine_fit_matches_jax(rng):
     """Unweighted (lstsq.py:99) and 0/1-weighted (fused.py:113) affine
     fits, both SVD least squares in f32: A and t to 2e-5 (well
@@ -275,7 +332,7 @@ def test_fit_ot_affine_matches_jax(rng):
     packages, then Sinkhorn, targets and the affine fit in f32: A and t
     to 2e-5 (the targets agree to ~5e-6)."""
     src, ref, mask = _rgb_pair(rng)
-    A, t = tot.fit_ot_affine(src, ref, mask, CFG)
+    A, t = tot.fit_ot_affine(src, ref, mask, CFG, device="cpu")
     jA, jt = jot.fit_ot_affine(src, ref, mask, JCFG)
     assert A.dtype == np.float64 and A.shape == (3, 3) and t.shape == (3,)
     np.testing.assert_allclose(A, jA, rtol=0, atol=2e-5)
@@ -283,7 +340,7 @@ def test_fit_ot_affine_matches_jax(rng):
     # identity under 2 valid pixels
     one = np.zeros(mask.shape, bool)
     one[3, 4] = True
-    A, t = tot.fit_ot_affine(src, ref, one, CFG)
+    A, t = tot.fit_ot_affine(src, ref, one, CFG, device="cpu")
     np.testing.assert_array_equal(A, np.eye(3))
     np.testing.assert_array_equal(t, np.zeros(3))
 
@@ -294,13 +351,13 @@ def test_ot_match_rgb_sinkhorn_matches_jax(rng):
     inputs <= 1). Fewer than 2 valid pixels: an unchanged copy."""
     src, ref, mask = _rgb_pair(rng)
     kw = dict(n_samples=600, num_itermax=120, seed=3)
-    got = tot.ot_match_rgb_sinkhorn(src, ref, mask, **kw)
+    got = tot.ot_match_rgb_sinkhorn(src, ref, mask, device="cpu", **kw)
     want = jot.ot_match_rgb_sinkhorn(src, ref, mask, **kw)
     np.testing.assert_array_equal(got[~mask], src[~mask])
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
     none = np.zeros(mask.shape, bool)
     np.testing.assert_array_equal(
-        tot.ot_match_rgb_sinkhorn(src, ref, none, **kw), src)
+        tot.ot_match_rgb_sinkhorn(src, ref, none, device="cpu", **kw), src)
 
 
 def test_fit_and_apply_ot_poly_match_jax(rng):
@@ -309,7 +366,7 @@ def test_fit_and_apply_ot_poly_match_jax(rng):
     (f32 Horner, another summation order); the identity fallback under
     min_pixels."""
     src, ref, mask = _rgb_pair(rng)
-    got = tot.fit_ot_poly(src, ref, mask, deg=2, cfg=CFG)
+    got = tot.fit_ot_poly(src, ref, mask, deg=2, cfg=CFG, device="cpu")
     want = jot.fit_ot_poly(src, ref, mask, deg=2, cfg=JCFG)
     assert got.shape == (3, 3) and got.dtype == np.float64
     xx = np.linspace(0.0, 1.0, 101)
@@ -317,11 +374,11 @@ def test_fit_and_apply_ot_poly_match_jax(rng):
         assert np.abs(np.polyval(got[c], xx)
                       - np.polyval(want[c], xx)).max() < 2e-5
     for m in (None, mask):
-        np.testing.assert_allclose(tot.apply_poly(src, got, m),
+        np.testing.assert_allclose(tot.apply_poly(src, got, m, device="cpu"),
                                    jot.apply_poly(src, got, m),
                                    rtol=0, atol=1e-6)
     ident = tot.fit_ot_poly(src, ref, mask, deg=2, cfg=CFG,
-                            min_pixels=10 ** 6)
+                            min_pixels=10 ** 6, device="cpu")
     np.testing.assert_array_equal(ident, [[0, 1, 0]] * 3)
 
 
@@ -356,6 +413,32 @@ def test_sinkhorn_duals_kernel_matches_plain_on_gpu(cuda_device, rng):
     f, g, err = tduals.sinkhorn_duals(la, lb, Mr, 60, 0.0)
     f2, g2, _ = tduals.sinkhorn_duals(la, lb, Mr, 60, 0.0)
     assert launch_counts == {tduals.KERNEL_NAME: 12}
+    assert torch.equal(f, f2) and torch.equal(g, g2)
+    rf, rg, rerr = tduals.sinkhorn_duals_reference(la, lb, Mr, 60, 0.0)
+    P = torch.exp(Mr + f[:, None] + g[None, :])
+    dP = (P - torch.exp(Mr + rf[:, None] + rg[None, :])).abs().max()
+    assert float(dP) <= 1e-5 * float(P.max())
+    torch.testing.assert_close(f, rf, rtol=0, atol=1e-4)
+    torch.testing.assert_close(g, rg, rtol=0, atol=1e-4)
+    assert (abs(float(err) - float(rerr))
+            <= 0.1 * max(float(err), float(rerr)) + 1e-8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(64, 7001), (37, 6145)])
+def test_sinkhorn_long_rows_kernel_matches_plain_on_gpu(cuda_device, rng,
+                                                        n, m):
+    """The long-rows route (m > ONE_PASS_COLS; m odd, so rows are not
+    16-byte aligned) against the plain version at 60 sweeps, with the
+    bounds of the one-pass test; two runs give the same bits; each group
+    of 10 sweeps counts one launch of the long-rows counter alone."""
+    Mr = T(_cost(rng, n, m)).to(cuda_device)
+    la = torch.full((n,), -np.log(float(n)), device=cuda_device)
+    lb = torch.full((m,), -np.log(float(m)), device=cuda_device)
+    reset_launch_counts()
+    f, g, err = tduals.sinkhorn_duals(la, lb, Mr, 60, 0.0)
+    f2, g2, _ = tduals.sinkhorn_duals(la, lb, Mr, 60, 0.0)
+    assert launch_counts == {tduals.LONG_ROWS_NAME: 12}
     assert torch.equal(f, f2) and torch.equal(g, g2)
     rf, rg, rerr = tduals.sinkhorn_duals_reference(la, lb, Mr, 60, 0.0)
     P = torch.exp(Mr + f[:, None] + g[None, :])

@@ -68,7 +68,7 @@ def _carry(jmodel):
     p = jmodel.params
     return tridge.RidgeSpectralSR(
         jmodel.n_inputs, jmodel.n_outputs,
-        RidgeSRConfig(**asdict(jmodel.cfg))).params_from_numpy(
+        RidgeSRConfig(**asdict(jmodel.cfg)), device="cpu").params_from_numpy(
         np.asarray(p.x_mean), np.asarray(p.x_std), np.asarray(p.W),
         np.asarray(p.intercept))
 
@@ -243,8 +243,8 @@ def test_fit_matches_jax(weighted):
         w = np.random.default_rng(5).random(20000).astype(np.float32)
     jm = jridge.RidgeSpectralSR(bx, by, JRidgeSRConfig(degree=deg)).fit(
         X, Y, w)
-    tm = tridge.RidgeSpectralSR(bx, by, RidgeSRConfig(degree=deg)).fit(
-        X, Y, w)
+    tm = tridge.RidgeSpectralSR(bx, by, RidgeSRConfig(degree=deg),
+                                device="cpu").fit(X, Y, w)
     np.testing.assert_allclose(tm.x_mean.numpy(),
                                np.asarray(jm.params.x_mean), rtol=1e-6)
     np.testing.assert_allclose(tm.x_std.numpy(),
@@ -260,7 +260,7 @@ def test_checkpoint_crosses_both_ways(jax_models, tmp_path, rng):
     jm = jax_models["product"]
     jax_ckpt = tmp_path / "jax.npz"
     jridge.save_params(jax_ckpt, jm)
-    tm = tridge.load_params(jax_ckpt)
+    tm = tridge.load_params(jax_ckpt, device="cpu")
     assert type(tm.cfg) is RidgeSRConfig
     assert asdict(tm.cfg) == asdict(jm.cfg) and tm.n_outputs == jm.n_outputs
     X = rng.random((300, jm.n_inputs)).astype(np.float32)
@@ -290,10 +290,153 @@ def test_entry_matches_graft_entry():
     np.testing.assert_array_equal(x, np.asarray(jx))
     jm = jridge.RidgeSpectralSR(10, 285, JRidgeSRConfig(degree=3)).fit(X, Y)
     np.testing.assert_allclose(_carry(jm)(T(x)).numpy(), want, atol=1e-5)
-    fwd, (tx,) = entry()
+    fwd, (tx,) = entry("cpu")
     got = fwd(tx).detach().numpy()
     assert got.shape == (8192, 285) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: 10 mantissa
+    bits, to nearest, ties away from zero, by adding half of the 13
+    dropped bits to the magnitude through the int32 view and clearing
+    them (a carry rounds into the exponent)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _sr_tf32_u16(X, model, nodata, terms=3):
+    """The SR kernel's arithmetic on a (N, Bx) batch in plain torch: the
+    monomials and W split into TF32 hi = rna(x) and lo = rna(x - hi),
+    the contraction as hi.hi + lo.hi + hi.lo in f32 (the kernel's
+    accumulators, added in its order), or hi.hi alone with
+    ``terms=1``; then the intercept, sigmoid and u16 code."""
+    valid = sr_predict.valid_pixels(X, nodata)
+    feats = tlstsq.poly_expand(
+        (torch.nan_to_num(X) - model.x_mean) / model.x_std,
+        model.factors.to(torch.int64))
+    a_hi, b_hi = _tf32_rna(feats), _tf32_rna(model.W)
+    z = a_hi @ b_hi
+    if terms == 3:
+        a_lo = _tf32_rna(feats - a_hi)
+        b_lo = _tf32_rna(model.W - b_hi)
+        z = (z + a_lo @ b_hi) + a_hi @ b_lo
+    return tstats.quantize_reflectance_u16(
+        tlstsq.sigmoid(z + model.intercept), valid[:, None])
+
+
+@pytest.mark.parametrize("by", [32, 285])
+def test_three_term_tf32_matches_f32(by):
+    """The kernel's three-term TF32 contraction, emulated on the CPU, for
+    degree-3 models from 10 bands fitted on chip_smoke.py's synthetic
+    SR pixels (scripts/bench_sr_granule.py:56-62; 20k here): on a seeded
+    96 x 80 px cube with a NaN and nodata pixels, the u16 product is <= 1
+    step from the f32 plain version (sr_predict_u16_reference) and from
+    JAX's predict_cube_u16, with identical 65535 masks (the dropped
+    lo.lo term is ~2^-22 of each product, f32 level). One-pass TF32
+    (hi.hi alone, ~2^-11 per product) is shown to miss that bound on the
+    same data."""
+    rng = np.random.default_rng(0)
+    X = rng.random((20000, 10)).astype(np.float32)
+    Y = np.clip(0.15 + 0.5 * X[:, :1] + 0.2 * X[:, 1:2]
+                + 0.05 * rng.random((20000, by)), 0.01,
+                0.99).astype(np.float32)
+    jm = jridge.RidgeSpectralSR(10, by, JRidgeSRConfig(degree=3)).fit(X, Y)
+    tm = _carry(jm)
+    cube = _cube(10, 96, 80, 9)
+    Xp = T(cube.reshape(10, -1).T.copy())
+    got = _sr_tf32_u16(Xp, tm, NODATA).T
+    args = (tm.x_mean, tm.x_std, tm.W, tm.intercept, tm.factors)
+    plain = sr_predict.sr_predict_u16_reference(
+        T(cube.reshape(10, -1)), *args, nodata=NODATA)
+    _assert_u16_close(got.numpy(), plain.numpy())
+    want = jm.predict_cube_u16(cube, nodata=NODATA).reshape(by, -1)
+    _assert_u16_close(got.numpy(), want)
+    assert int((got == 65535).sum()) == 3 * by
+    one = _sr_tf32_u16(Xp, tm, NODATA, terms=1).T
+    d = (one.to(torch.int32) - plain.to(torch.int32)).abs().max()
+    assert int(d) > 1
+
+
+@pytest.mark.parametrize("bx,degree,bias", [(10, 3, False), (10, 4, False),
+                                            (4, 2, True), (16, 2, False),
+                                            (10, 1, False)])
+def test_pair_table(bx, degree, bias, rng):
+    """The kernel's K order (sr_pair_table): every monomial fills exactly
+    one K column, the rest are padding with a zero W row; the two
+    monomials of a pair share every factor but the last; forming each
+    pair as the kernel does (prefix product, then times each last
+    factor) gives poly_expand's monomials bit for bit. Pairs pad to a
+    multiple of 16; the four pairs of a full block of 8 read rows that
+    are different mod 4 (the shared-memory banks of the kernel's
+    inputs)."""
+    fac = host.poly_factor_indices(bx, degree, bias)
+    pairs, src = sr_predict.sr_pair_table(fac)
+    width = 4 if degree <= 3 else 5
+    assert pairs.shape[1] == width and pairs.shape[0] % 16 == 0
+    assert src.shape == (2 * pairs.shape[0],)
+    assert sorted(src[src >= 0].tolist()) == list(range(fac.shape[0]))
+    x = rng.standard_normal((50, bx)).astype(np.float32)
+    ext = np.concatenate([np.ones((50, 1), np.float32), x], axis=1)
+    want = tlstsq.poly_expand(T(x), T(fac).to(torch.int64)).numpy()
+    got = np.zeros((50, src.shape[0]), np.float32)
+    for q, row in enumerate(pairs):
+        p = ext[:, row[0]]
+        for r in row[1:width - 2]:
+            p = p * ext[:, r]
+        col = 8 * (q // 4) + q % 4
+        got[:, col] = p * ext[:, row[width - 2]]
+        got[:, col + 4] = p * ext[:, row[width - 1]]
+    live = src >= 0
+    np.testing.assert_array_equal(got[:, live], want[:, src[live]])
+    for q, row in enumerate(pairs):
+        col = 8 * (q // 4) + q % 4
+        if src[col] >= 0 and src[col + 4] >= 0:
+            a, b = fac[src[col]], fac[src[col + 4]]
+            nz_a, nz_b = a[a != 0], b[b != 0]
+            assert nz_a[:-1].tolist() == nz_b[:-1].tolist()
+    if (bx, degree) == (10, 3):   # the product: 32 pairs, 3 % padding
+        assert pairs.shape[0] == 160
+        step = pairs[:4]           # the degree-1 block: x_1..x_4, x_5..x_8
+        assert sorted(step[:, 2] % 4) == [0, 1, 2, 3]
+
+
+def test_pair_table_cache():
+    """The wrapper reads a factor table back once: the same tensor gives
+    the same cached pair table, an in-place change or another tensor its
+    own, and the entry goes with its tensor."""
+    fac = torch.from_numpy(host.poly_factor_indices(10, 3, False))
+    a = sr_predict._device_pairs(fac)
+    assert sr_predict._device_pairs(fac)[0] is a[0]
+    assert a[0].dtype == torch.int32 and a[1].dtype == torch.int32
+    np.testing.assert_array_equal(a[0].numpy(),
+                                  sr_predict.sr_pair_table(fac.numpy())[0])
+    other = torch.from_numpy(host.poly_factor_indices(4, 2, False))
+    assert sr_predict._device_pairs(other)[0].shape[0] == 16
+    fac[0, 0] = 2
+    b = sr_predict._device_pairs(fac)
+    assert b[0] is not a[0]
+    key = id(other)
+    del other
+    assert key not in sr_predict._PAIRS
+
+
+def test_kernel_shared_memory_limit():
+    """The wrapper's mirror of the kernel's shared-memory plan: 32 bands
+    per CTA up to 800 K columns, 16 up to 1632 (1600 at degree 4), none
+    above. The product (10 bands, degree 3, F = 285) takes 320 columns
+    at 32 bands; degree 4 from 10 bands (F = 1000) 1184 at 16; 12 bands
+    at degree 4 (F = 1819) 2080, which the kernel does not take."""
+    tb = sr_predict.sr_tile_bands
+    assert [tb(k, 3) for k in (32, 800, 832, 1632, 1664)] == [
+        32, 32, 16, 16, 0]
+    assert [tb(k, 4) for k in (1600, 1632)] == [16, 0]
+    for (bx, degree), (k_cols, bands) in {(10, 3): (320, 32),
+                                          (10, 4): (1184, 16),
+                                          (12, 4): (2080, 0)}.items():
+        fac = host.poly_factor_indices(bx, degree, False)
+        assert sr_predict.sr_k_columns(fac) == k_cols
+        assert tb(k_cols, degree) == bands
 
 
 def test_wrapper_rejects_bad_operands(jax_models):
@@ -309,7 +452,8 @@ def test_wrapper_rejects_bad_operands(jax_models):
     with pytest.raises(ValueError, match="valid"):
         sr_predict.sr_predict_u16(X, *args, valid=torch.ones(3, dtype=bool))
     with pytest.raises(RuntimeError, match="fit"):
-        tridge.RidgeSpectralSR(6, 12).predict(np.zeros((2, 6), np.float32))
+        tridge.RidgeSpectralSR(6, 12, device="cpu").predict(
+            np.zeros((2, 6), np.float32))
 
 
 # -- the kernel on the card --------------------------------------------------
@@ -345,3 +489,44 @@ def test_sr_kernel_matches_plain_on_gpu(cuda_device, jax_models, name,
     torch.cuda.synchronize()
     assert launch_counts == {sr_predict.KERNEL_NAME: 1}
     _assert_u16_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["cmajor", "rowmajor"])
+@pytest.mark.parametrize("by", [32, 285])
+def test_sr_kernel_wide_and_degree4_on_gpu(cuda_device, by, layout):
+    """The tensor-core kernel on its other tile shapes: By = 32 and 285
+    (a ragged last band tile) at degree 3 (F = 285, 32 bands per CTA),
+    and degree 4 (F = 1000, 16 bands per CTA), 61 x 67 px (a ragged
+    last pixel tile), NaN and nodata pixels: identical 65535 mask, <= 1
+    step from the plain version. F = 1819 (12 bands at degree 4) is
+    refused before launch; the wrapper's shared-memory mirror agrees with
+    the kernel's own."""
+    X, Y = _training_data(10, by, 20000, 8)
+    for deg in (3, 4):
+        tm = tridge.RidgeSpectralSR(10, by, RidgeSRConfig(degree=deg),
+                                    device=cuda_device).fit(X, Y)
+        Xc = T(_cube(10, 61, 67, 7).reshape(10, -1)).to(cuda_device)
+        args = (tm.x_mean, tm.x_std, tm.W, tm.intercept, tm.factors)
+        kw = {"nodata": NODATA}
+        if layout == "rowmajor":
+            Xc = Xc.T.contiguous()
+            kw = {"valid": sr_predict.valid_pixels(Xc, NODATA)}
+        got = sr_predict.sr_predict_u16(Xc, *args, layout=layout, **kw)
+        want = sr_predict.sr_predict_u16_reference(Xc, *args, layout=layout,
+                                                   **kw)
+        _assert_u16_close(got.cpu().numpy(), want.cpu().numpy())
+    from hyperres_torch.kernels._build import load_library
+    lib = load_library("sr_predict")
+    for k_cols in range(32, 2048, 32):
+        for deg in (3, 4):
+            assert (lib.sr_predict_tile_bands(k_cols, deg)
+                    == sr_predict.sr_tile_bands(k_cols, deg))
+    big = tridge.RidgeSpectralSR(12, 4, RidgeSRConfig(degree=4),
+                                 device=cuda_device)
+    big.params_from_numpy(np.zeros(12), np.ones(12),
+                          np.zeros((big.n_features, 4)), np.zeros(4))
+    with pytest.raises(ValueError, match="shared memory"):
+        sr_predict.sr_predict_u16(
+            torch.zeros((12, 64), device=cuda_device), big.x_mean,
+            big.x_std, big.W, big.intercept, big.factors)
