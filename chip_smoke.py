@@ -54,11 +54,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    the one-pass kernel and nothing else, against ``engine="xla"`` at an
    equal sweep count within ENGINE_TOL (with the stop rule the two
    engines stop on different marginals, and their difference is
-   printed); both engines timed. Then the long-rows route at
-   SINKHORN_LONG_ROWS_SHAPE (128 x 100,000 seeded samples):
-   ``ot_barycentric_targets(engine="pallas")`` must launch the
+   printed); both engines timed; the long-rows route's kernels timed on
+   the same sweeps too. Then the long-rows route (column slices) at each
+   of SINKHORN_LONG_ROWS_SHAPES (128 x 100,000 and 1024 x 20,000 seeded
+   samples): ``ot_barycentric_targets(engine="pallas")`` must launch the
    long-rows kernels and nothing else, then the same checks (err's
-   floor SINKHORN_LONG_ROWS_ERR_ATOL).
+   floor SINKHORN_LONG_ROWS_ERR_ATOL), and the two-read kernels timed on
+   the same sweeps. The stop rule once more at 128 x 100,000 on the
+   samples of SINKHORN_FRAGILE_SEED, whose err at a check lies ~1 % from
+   ``stop_thr``: there the sweep counts of kernel and plain version may
+   differ by one group of checks, and by no more (SINKHORN_STOP_MARGIN).
 5c. The ``fusion_method="ot_affine"`` plan at full scale: shapes,
    finite fraction > 0.3, max <= 1; its PSNRs and SAM printed
    (``bench.py`` gates only ``ot_poly``).
@@ -71,9 +76,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    version on a 1024 x 1024 px cube with a NaN and a nodata pixel, both
    layouts, By = 32 and By = 285, and on a 256 x 256 px cube for a
    degree-4 model (F = 1000, 16 bands per CTA): identical 65535 mask,
-   <= SR_STEPS_TOL u16 steps; a model past the kernel's shared memory
-   (12 bands at degree 4, F = 1819) must be refused before launch; the
-   row-major serving form timed at By = 285.
+   <= SR_STEPS_TOL u16 steps; the row-major serving form timed at
+   By = 285.
+7a. The streamed SR route: a model whose W does not fit shared memory
+   (12 bands at degree 4, F = 1819, 2080 K columns; fitted on seeded
+   pixels) against the plain version at 256 x 256 px in both layouts;
+   the product model forced onto the streamed route gives the resident
+   route's codes bit for bit; ``predict_cube_u16`` on a (12, 1024, 1024)
+   cube, once to warm up and N_RUNS times, must launch the streamed
+   kernel each time and agree with the plain version; kernel and plain
+   timed there. A model past the kernel's limits (18 bands, degree 2)
+   runs through ``engine="auto"`` on the ``"xla"`` program, launches no
+   kernel, agrees with the plain version, and raises under
+   ``engine="pallas"``.
 8. SR main path at full scale: ``predict_cube_u16`` on a (10, 9140,
    9309) cube with a nodata stripe over the first 5 % of rows, once to
    warm up and N_RUNS times under CUDA events; checks the (32, 9140,
@@ -101,13 +116,21 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    lo/hi, a mask) and per-band OBS-like p1/p99 ranges (sentinel 0): no
    code may differ. Kernel and plain timed in the reflectance form.
 11. SRF synthesis: ``srf_synthesize_auto(use_pallas=True)`` on the UTM
-   cube must launch the kernel; the kernel against its plain version at
-   S = 13 (S2A) and S = 3 (B2, B3, B4) with the valid-pixel mask, within
-   SRF_TOL and the fill exact; kernel, plain and ``torch.matmul`` timed.
+   cube must launch the kernel; the kernel (tiled route) against its
+   plain version at S = 13 (S2A) and S = 3 (B2, B3, B4) with the
+   valid-pixel mask, within SRF_TOL and the fill exact, and so the
+   file's earlier warp kernel forced onto the same rows; kernel, plain,
+   ``torch.matmul`` and the warp kernel timed; the tiled kernel's
+   shared-memory plan equal to the wrapper's mirror. Then seeded rows
+   at shapes whose route the rule picks, one launch under that route's
+   counter each: B = 401, S = 20 (tiled, 32-row tiles, two passes of 16
+   output bands), B = 400, S = 20 (generic) and B = 244, S = 13 (warp,
+   and the generic kernel forced onto the same rows), within
+   SRF_WIDE_RTOL of the largest output.
 
 Prints the kernels' JSON line (the two banded passes, the dense route,
 ``sinkhorn_duals`` (one pass), ``sinkhorn_duals_long_rows``,
-``sr_predict_u16``, ``quantize_u16``,
+``sr_predict_u16``, ``sr_predict_u16_streamed``, ``quantize_u16``,
 ``srf_synthesize``; each with its launches, error, times, its bound on
 this card and a library call's time where one PyTorch call computes the
 same function), then as its last line
@@ -224,14 +247,45 @@ SR_DEG4_HW = (256, 256)
 #: the earlier SIMT f32 SR kernel on an H100 80GB HBM3 at 700 W, for the
 #: printout: the product and the row-major (1 M, 10) -> (1 M, 285) form
 SR_SIMT_MS = {"product": 62.714, "rowmajor": 8.205}
-#: the long-rows Sinkhorn route's check: few rows, columns past the
-#: one-pass limit, inside the engine budget
-SINKHORN_LONG_ROWS_SHAPE = (128, 100_000)
-#: its err bound's floor: each row sums 100,000 exps (the row kernel ~390
-#: of them in order per thread), so near convergence err is rounding
-#: noise of a few 1e-7 (measured on an H100 at 300 sweeps: 5.4e-7 kernel,
-#: 6.9e-7 plain)
+#: the resident route at the product before the streamed route shared its
+#: source (same card and power limit), for the printout
+SR_RESIDENT_BEFORE_MS = 34.766
+#: the long-rows Sinkhorn route's checks: columns past the one-pass limit,
+#: inside the engine budget; few rows (the kernels line's entry) and more
+SINKHORN_LONG_ROWS_SHAPES = ((128, 100_000), (1024, 20_000))
+#: the samples' seed. Near convergence err falls ~10x per 10 sweeps down to
+#: its rounding floor (~6e-7 at 128 x 100,000), so a check whose err lies
+#: within that noise of stop_thr = 1e-6 can go either way in any two
+#: versions of the arithmetic (seed 11: 0.99e-6 at sweep 50). With this
+#: seed the plain version's err is 2.6e-6 at sweep 50 and 5.7e-7 at 60
+#: (128 x 100,000), 3.1e-6 at 40 and 4.8e-7 at 50 (1024 x 20,000), so the
+#: equal-sweep-count check tests the kernels, not the coincidence.
+SINKHORN_LONG_ROWS_SEED = 14
+#: the fragile case is kept as a check of its own at 128 x 100,000: with
+#: seed 11 the stop rule may split by one group of sweeps, which
+#: sinkhorn_stop_rule accepts only this close to stop_thr
+SINKHORN_FRAGILE_SEED = 11
+SINKHORN_CHECK_EVERY = 10
+SINKHORN_STOP_MARGIN = 0.05
+#: their err bound's floor: each row sums up to 100,000 exps, in slices,
+#: so near convergence err is rounding noise of a few 1e-7 (measured on
+#: an H100 at 300 sweeps at 128 x 100,000: 5.4e-7 kernel, 6.9e-7 plain)
 SINKHORN_LONG_ROWS_ERR_ATOL = 3e-7
+#: the streamed SR route: 12 bands at degree 4 (F = 1819, 2080 K columns),
+#: checked at 256 x 256 px and run as a product at 1024 x 1024 px; the
+#: model past the kernel's limits: 18 bands at degree 2
+SR_STREAM_BX, SR_STREAM_DEGREE = 12, 4
+SR_STREAM_HW = (1024, 1024)
+SR_XLA_BX, SR_XLA_DEGREE = 18, 2
+#: SRF on seeded rows in [0, 1), each shape on the route the rule gives
+#: it: past the warp kernel's limits (tiled with 32-row tiles, generic) and
+#: an even band count inside them (warp, with the generic kernel forced
+#: onto the same rows for its time and check); tolerance relative to the
+#: largest output (sums of up to 401 products, ~100)
+SRF_WIDE_ROWS = 200_000
+SRF_WIDE_SHAPES = ((401, 20, "tiled"), (400, 20, "generic"),
+                   (244, 13, "warp"))
+SRF_WIDE_RTOL = 3e-6
 
 
 def log(msg: str) -> None:
@@ -392,10 +446,10 @@ def u16_compare(got, want) -> tuple:
     return same_mask, worst, n_diff
 
 
-def sr_training_data(rng, n: int = 200_000):
+def sr_training_data(rng, n: int = 200_000, bx: int = SR_BX):
     """The SR bench's synthetic training pixels
-    (scripts/bench_sr_granule.py:56-62)."""
-    X = rng.random((n, SR_BX)).astype(np.float32)
+    (scripts/bench_sr_granule.py:56-62), from ``bx`` bands."""
+    X = rng.random((n, bx)).astype(np.float32)
     Y = np.clip(0.15 + 0.5 * X[:, :1] + 0.2 * X[:, 1:2]
                 + 0.05 * rng.random((n, SR_BY)), 0.01,
                 0.99).astype(np.float32)
@@ -403,31 +457,33 @@ def sr_training_data(rng, n: int = 200_000):
 
 
 def sr_bound(n_px: int, n_features: int, by: int,
-             mask_bytes: float = 0.0) -> dict:
-    """The SR kernel's bound: per pixel SR_BX f32 (and ``mask_bytes`` of
+             mask_bytes: float = 0.0, bx: int = SR_BX) -> dict:
+    """The SR kernel's bound: per pixel ``bx`` f32 (and ``mask_bytes`` of
     mask) read and ``by`` u16 written; F monomials times ``by`` outputs,
     one multiply-add each, at f32 accuracy on the tensor cores (SR_TC_TERMS
     TF32 products at the dense TF32 peak). ``f32_ms``: the same
     operations on the f32 pipes, the bound of a kernel without tensor
     cores."""
-    n_bytes = n_px * (4.0 * SR_BX + mask_bytes + 2.0 * by)
+    n_bytes = n_px * (4.0 * bx + mask_bytes + 2.0 * by)
     flops = 2.0 * n_features * by * n_px
     out = bound(n_bytes, SR_TC_TERMS * flops, PEAK_TF32_TC_FLOPS)
     out["f32_ms"] = bound(n_bytes, flops)["bound_ms"]
     return out
 
 
-def sr_phases(dev) -> dict:
+def sr_phases(dev) -> list:
     """Phases 6-8 (see the module docstring). Returns the SR kernel's
-    entry of the kernels line."""
+    entries of the kernels line: the resident and the streamed route."""
     import torch
     from hyperres_torch.core.config import RidgeSRConfig
     from hyperres_torch.device import launch_counts, reset_launch_counts
     from hyperres_torch.entry import entry
     from hyperres_torch.fusion.ridge_sr import RidgeSpectralSR
+    from hyperres_torch.kernels import sr_predict as sp
+    from hyperres_torch.kernels._build import load_library
     from hyperres_torch.kernels.sr_predict import (
-        KERNEL_NAME, sr_k_columns, sr_predict_u16, sr_predict_u16_reference,
-        sr_tile_bands, valid_pixels,
+        KERNEL_NAME, STREAMED_NAME, sr_k_columns, sr_predict_u16,
+        sr_predict_u16_reference, sr_route, valid_pixels,
     )
 
     # -- 6. fit on the card, entry forward ---------------------------------
@@ -459,11 +515,23 @@ def sr_phases(dev) -> dict:
 
     # -- 7. kernel vs plain at 1024 x 1024 px, both layouts, By 32 / 285;
     # degree 4 (F = 1000) at 256 x 256 px; the F limit ----------------------
+    def route_in_source(k_cols: int, degree: int) -> tuple:
+        """The route by the shared-memory plans of csrc/sr_predict.cu,
+        which ``sr_route`` mirrors on the host."""
+        lib = load_library("sr_predict")
+        bands = lib.sr_predict_tile_bands(k_cols, degree)
+        if bands:
+            return sp.RESIDENT, bands
+        if lib.sr_predict_streamed_fits(k_cols, degree):
+            return sp.STREAMED, 32
+        return None, 0
+
     def check_both_layouts(m, Xc) -> int:
         """The kernel against its plain version on the (Bx, N) cube Xc,
         which holds one NaN and one nodata pixel, in both layouts:
         identical 65535 mask (exactly those 2 pixels), <= SR_STEPS_TOL
-        steps. Returns the largest step."""
+        steps; the host's route rule equal to the source's plan. Returns
+        the largest step."""
         args = (m.x_mean, m.x_std, m.W, m.intercept, m.factors)
         steps_max = 0
         for layout in ("cmajor", "rowmajor"):
@@ -478,10 +546,16 @@ def sr_phases(dev) -> dict:
             same, steps, n_diff = u16_compare(got, want)
             n_nodata = int((got.to(torch.int32) == 65535).sum())
             k_cols = sr_k_columns(m.factors.cpu().numpy())
+            if route_in_source(k_cols, m.cfg.degree) != sr_route(
+                    k_cols, m.cfg.degree):
+                fail(f"sr_route({k_cols}, {m.cfg.degree}) = "
+                     f"{sr_route(k_cols, m.cfg.degree)}, but the kernel's "
+                     f"source plans "
+                     f"{route_in_source(k_cols, m.cfg.degree)}")
             log(f"check SR {layout} Bx={m.n_inputs} By={m.n_outputs} "
                 f"degree {m.cfg.degree} F={m.n_features} ({k_cols} K "
-                f"columns, {sr_tile_bands(k_cols, m.cfg.degree)} bands per "
-                f"CTA), {Xc.shape[1]} px: mask identical {same}, "
+                f"columns, route {sr_route(k_cols, m.cfg.degree)}), "
+                f"{Xc.shape[1]} px: mask identical {same}, "
                 f"max |dq| {steps} (tol {SR_STEPS_TOL}), {n_diff} of "
                 f"{got.numel()} elements differ, {n_nodata // m.n_outputs} "
                 f"nodata px")
@@ -492,11 +566,11 @@ def sr_phases(dev) -> dict:
             steps_max = max(steps_max, steps)
         return steps_max
 
-    def check_cube(h, w):
-        cube = rng.random((SR_BX, h, w)).astype(np.float32)
+    def check_cube(h, w, bx=SR_BX):
+        cube = rng.random((bx, h, w)).astype(np.float32)
         cube[3, h // 10, w // 5] = np.nan
         cube[7, h // 2, w // 2] = SR_NODATA
-        return torch.from_numpy(cube).to(dev).reshape(SR_BX, h * w)
+        return torch.from_numpy(cube).to(dev).reshape(bx, h * w)
 
     h, w = SR_CHECK_HW
     Xc = check_cube(h, w)
@@ -504,19 +578,106 @@ def sr_phases(dev) -> dict:
     deg4 = RidgeSpectralSR(SR_BX, SR_BY, RidgeSRConfig(degree=4),
                            device=dev).fit(Xt, Yt)
     worst = max(worst, check_both_layouts(deg4, check_cube(*SR_DEG4_HW)))
-    # a model past the kernel's shared memory: 12 bands at degree 4 (F =
-    # 1819, 2080 K columns) is refused before launch
-    big = RidgeSpectralSR(12, 4, RidgeSRConfig(degree=4), device=dev)
-    big.params_from_numpy(np.zeros(12, np.float32), np.ones(12, np.float32),
-                          np.zeros((big.n_features, 4), np.float32),
-                          np.zeros(4, np.float32))
+    del deg4
+
+    # -- 7a. the streamed route; a model past the kernel's limits ----------
+    Xb, Yb = sr_training_data(np.random.default_rng(3), 50_000, SR_STREAM_BX)
+    big = RidgeSpectralSR(SR_STREAM_BX, SR_BY,
+                          RidgeSRConfig(degree=SR_STREAM_DEGREE),
+                          device=dev).fit(Xb, Yb)
+    big_cols = sr_k_columns(big.factors.cpu().numpy())
+    if sr_route(big_cols, SR_STREAM_DEGREE)[0] != sp.STREAMED:
+        fail(f"F = {big.n_features} should take the streamed route")
+    reset_launch_counts()
+    worst_s = check_both_layouts(
+        big, check_cube(*SR_DEG4_HW, bx=SR_STREAM_BX))
+    if dict(launch_counts) != {STREAMED_NAME: 2}:
+        fail(f"the F = {big.n_features} checks should launch the streamed "
+             f"kernel alone: {dict(launch_counts)}")
+    # both routes on the product model: the same codes
+    args = (model.x_mean, model.x_std, model.W, model.intercept,
+            model.factors)
+    res_q = sr_predict_u16(Xc, *args, nodata=SR_NODATA)
+    route_rule = sp.sr_route
+    sp.sr_route = lambda k_cols, degree: (sp.STREAMED, 32)
     try:
-        sr_predict_u16(torch.zeros((12, 64), device=dev), big.x_mean,
-                       big.x_std, big.W, big.intercept, big.factors)
-        fail(f"the SR kernel took F = {big.n_features}")
+        str_q = sr_predict_u16(Xc, *args, nodata=SR_NODATA)
+    finally:
+        sp.sr_route = route_rule
+    n_route = n_differ(res_q, str_q)
+    log(f"SR resident vs streamed route on the product model at {h * w} px: "
+        f"{n_route} of {res_q.numel()} codes differ")
+    if n_route:
+        fail("the streamed SR route's codes differ from the resident route's")
+    del res_q, str_q
+    # its product: predict_cube_u16 at SR_STREAM_HW
+    hs, ws = SR_STREAM_HW
+    Xs = check_cube(hs, ws, bx=SR_STREAM_BX)
+    cube_s = Xs.reshape(SR_STREAM_BX, hs, ws)
+    reset_launch_counts()
+    out = big.predict_cube_u16(cube_s, nodata=SR_NODATA)
+    for _ in range(N_RUNS):
+        out = big.predict_cube_u16(cube_s, nodata=SR_NODATA)
+    torch.cuda.synchronize()
+    counts_s = dict(launch_counts)
+    if counts_s != {STREAMED_NAME: N_RUNS + 1} or big.last_engine != "pallas":
+        fail(f"{STREAMED_NAME} alone should launch {N_RUNS + 1} times in "
+             f"{N_RUNS + 1} products of the F = {big.n_features} model: "
+             f"{counts_s}, engine {big.last_engine}")
+    args_s = (big.x_mean, big.x_std, big.W, big.intercept, big.factors)
+    want = sr_predict_u16_reference(Xs, *args_s, nodata=SR_NODATA)
+    same, steps, n_diff = u16_compare(out.reshape(SR_BY, hs * ws), want)
+    log(f"SR streamed product {tuple(cube_s.shape)} -> {tuple(out.shape)}: "
+        f"mask identical {same}, max |dq| {steps}, {n_diff} of "
+        f"{want.numel()} elements differ; launches {counts_s}")
+    if not (same and steps <= SR_STEPS_TOL
+            and tuple(out.shape) == (SR_BY, hs, ws)):
+        fail("the streamed SR product disagrees with its plain version")
+    worst_s = max(worst_s, steps)
+    del out, want
+    ms_s = cuda_ms(lambda: sr_predict_u16(Xs, *args_s, nodata=SR_NODATA), 10)
+    plain_s = cuda_ms(lambda: sr_predict_u16_reference(
+        Xs, *args_s, nodata=SR_NODATA), 2)
+    work_s = sr_bound(hs * ws, big.n_features, SR_BY, bx=SR_STREAM_BX)
+    f32_s = work_s.pop("f32_ms")
+    log(f"SR streamed kernel at {tuple(cube_s.shape)}: kernel {ms_s:.3f} ms, "
+        f"plain {plain_s:.3f} ms; bound {work_s['bound_ms']:.3f} ms "
+        f"({work_s['bound_by']}), {work_s['bound_ms'] / ms_s:.1%} of it; "
+        f"the f32 pipes' bound {f32_s:.3f} ms")
+    streamed_entry = {
+        "name": STREAMED_NAME, "route": "cuda", "source": SR_SOURCE,
+        "replaces": SR_REPLACES, "launches": counts_s[STREAMED_NAME],
+        "max_abs_err": worst_s, "ms": ms_s, "plain_ms": plain_s,
+        "library_ms": None, **work_s}
+    del big, Xs, cube_s
+    # past the kernel's limits: engine="auto" is the "xla" program
+    Xw, Yw = sr_training_data(np.random.default_rng(4), 50_000, SR_XLA_BX)
+    wide = RidgeSpectralSR(SR_XLA_BX, SR_BY,
+                           RidgeSRConfig(degree=SR_XLA_DEGREE),
+                           device=dev).fit(Xw, Yw)
+    Xx = check_cube(*SR_DEG4_HW, bx=SR_XLA_BX)
+    reset_launch_counts()
+    got = wide.predict_cube_u16(Xx.reshape(SR_XLA_BX, *SR_DEG4_HW),
+                                nodata=SR_NODATA)
+    want = sr_predict_u16_reference(Xx, wide.x_mean, wide.x_std, wide.W,
+                                    wide.intercept, wide.factors,
+                                    nodata=SR_NODATA)
+    same, steps, n_diff = u16_compare(got.reshape(SR_BY, -1), want)
+    log(f"SR Bx={SR_XLA_BX} degree {SR_XLA_DEGREE} (F = {wide.n_features}) "
+        f"through engine='auto': engine {wide.last_engine}, launches "
+        f"{dict(launch_counts)}; vs plain: mask identical {same}, max |dq| "
+        f"{steps}, {n_diff} of {want.numel()} elements differ")
+    if not (wide.last_engine == "xla" and not launch_counts and same
+            and steps <= SR_STEPS_TOL):
+        fail("engine='auto' past the kernel's limits should run the 'xla' "
+             "program and agree with the plain version")
+    try:
+        wide.predict_cube_u16(Xx.reshape(SR_XLA_BX, *SR_DEG4_HW),
+                              nodata=SR_NODATA, engine="pallas")
+        fail(f"engine='pallas' took Bx = {SR_XLA_BX}")
     except ValueError as e:
-        log(f"SR F limit: F = {big.n_features} refused ({e})")
-    del deg4, big
+        log(f"SR engine='pallas' at Bx = {SR_XLA_BX}: refused ({e})")
+    del wide, Xx, got, want
     # the row-major serving form at By = 285, timed
     Xr = Xc.T.contiguous()
     kw = {"valid": valid_pixels(Xr, SR_NODATA), "layout": "rowmajor"}
@@ -596,15 +757,17 @@ def sr_phases(dev) -> dict:
     work = sr_bound(n_px, model.n_features, SR_BY)
     f32_ms = work.pop("f32_ms")
     log(f"SR kernel at {SR_SHAPE} -> {expect}: kernel {ms:.3f} ms (the "
-        f"SIMT f32 kernel took {SR_SIMT_MS['product']} ms), plain "
+        f"SIMT f32 kernel took {SR_SIMT_MS['product']} ms; this route "
+        f"before the streamed one was added {SR_RESIDENT_BEFORE_MS} ms), "
+        f"plain "
         f"{plain_ms:.3f} ms; bound {work['bound_ms']:.3f} ms "
         f"({work['bound_by']}: {SR_TC_TERMS} TF32 products at "
         f"{PEAK_TF32_TC_FLOPS / 1e12:g} TFLOP/s), {work['bound_ms'] / ms:.1%} "
         f"of it; the f32 pipes' bound {f32_ms:.3f} ms")
-    return {"name": KERNEL_NAME, "route": "cuda", "source": SR_SOURCE,
-            "replaces": SR_REPLACES, "launches": counts[KERNEL_NAME],
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, **work}
+    return [{"name": KERNEL_NAME, "route": "cuda", "source": SR_SOURCE,
+             "replaces": SR_REPLACES, "launches": counts[KERNEL_NAME],
+             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             "library_ms": None, **work}, streamed_entry]
 
 
 def build_plan(scene: dict, device, **kw):
@@ -696,8 +859,7 @@ def sinkhorn_checks(la, lb, Mr, ot, name: str,
     (``ot.num_itermax``), P = exp(Mr + f + g) within SINKHORN_P_RTOL of
     its largest entry, f and g within SINKHORN_FG_TOL, err within
     SINKHORN_ERR_RTOL / ``err_atol``, two kernel runs bit-equal, only
-    ``name`` launched; with the config's stop rule the same sweep count and err
-    within the same bound. Returns P's error, the stop rule's sweeps and
+    ``name`` launched; then :func:`sinkhorn_stop_rule`. Returns P's error, the stop rule's sweeps and
     times (kernel and plain, fixed count and stop rule)."""
     import torch
     from hyperres_torch.device import launch_counts, reset_launch_counts
@@ -744,8 +906,27 @@ def sinkhorn_checks(la, lb, Mr, ot, name: str,
         f"{plain_fixed / fixed[0] * 1e3:.2f} us, bound "
         f"{sinkhorn_bound(n, m, 1)['bound_ms'] * 1e3:.2f} us")
 
-    # the config's stop rule
-    rule = (ot.num_itermax, ot.stop_thr)
+    stop = sinkhorn_stop_rule(la, lb, Mr, ot, name, err_atol)
+    return {"p_err": p_err, "ms_fixed": ms_fixed, **stop}
+
+
+def sinkhorn_stop_rule(la, lb, Mr, ot, name: str,
+                       err_atol: float = SINKHORN_ERR_ATOL) -> dict:
+    """The route ``name`` against its plain version under the config's
+    stop rule: the same sweep count, and err within SINKHORN_ERR_RTOL /
+    ``err_atol``. The counts may differ by one group of
+    SINKHORN_CHECK_EVERY sweeps only where the plain version's err at the
+    earlier of the two checks lies within SINKHORN_STOP_MARGIN of
+    ``stop_thr`` (two versions of the arithmetic then fall on either
+    side of it); the errs are then compared at the later count. Returns
+    the kernel's sweeps and both times."""
+    from hyperres_torch.kernels.sinkhorn_duals import (
+        sinkhorn_duals, sinkhorn_duals_reference,
+    )
+
+    n, m = Mr.shape
+    every = SINKHORN_CHECK_EVERY
+    rule = (ot.num_itermax, ot.stop_thr, every)
     *_, kerr, ksw = sinkhorn_duals(la, lb, Mr, *rule, return_sweeps=True)
     *_, perr, psw = sinkhorn_duals_reference(la, lb, Mr, *rule,
                                              return_sweeps=True)
@@ -753,13 +934,42 @@ def sinkhorn_checks(la, lb, Mr, ot, name: str,
     plain_ms = cuda_ms(lambda: sinkhorn_duals_reference(la, lb, Mr, *rule),
                        2)
     log(f"Sinkhorn {n} x {m} stop rule: kernel {ksw} sweeps, err "
-        f"{float(kerr):.3e}, {ms:.3f} ms; plain {psw} sweeps, err "
-        f"{float(perr):.3e}, {plain_ms:.3f} ms")
-    if not (ksw == psw and err_close(kerr, perr)):
-        fail(f"under the stop rule {name} stops at another sweep or err "
-             f"than its plain version")
-    return {"p_err": p_err, "sweeps": ksw, "ms": ms, "plain_ms": plain_ms,
-            "ms_fixed": ms_fixed}
+        f"{float(kerr):.3e}, {ms:.3f} ms = {ms / ksw * 1e3:.2f} us per "
+        f"sweep; plain {psw} sweeps, err {float(perr):.3e}, "
+        f"{plain_ms:.3f} ms")
+    if ksw != psw:
+        early, late = sorted((ksw, psw))
+        *_, at_early = sinkhorn_duals_reference(la, lb, Mr, early, 0.0, every)
+        off = abs(float(at_early) - ot.stop_thr) / ot.stop_thr
+        log(f"Sinkhorn {n} x {m}: the sweep counts differ; the plain "
+            f"version's err at sweep {early} is {float(at_early):.4e}, "
+            f"{off:.2%} from stop_thr {ot.stop_thr:g} (margin "
+            f"{SINKHORN_STOP_MARGIN:.0%})")
+        if late - early != every or off > SINKHORN_STOP_MARGIN:
+            fail(f"under the stop rule {name} stops at another sweep than "
+                 f"its plain version, away from the threshold")
+        *_, kerr = sinkhorn_duals(la, lb, Mr, late, 0.0, every)
+        *_, perr = sinkhorn_duals_reference(la, lb, Mr, late, 0.0, every)
+    kerr, perr = float(kerr), float(perr)
+    if abs(kerr - perr) > SINKHORN_ERR_RTOL * max(kerr, perr) + err_atol:
+        fail(f"under the stop rule {name}'s err {kerr:.3e} is not its plain "
+             f"version's {perr:.3e} at the same sweep")
+    return {"sweeps": ksw, "ms": ms, "plain_ms": plain_ms}
+
+
+def other_routes_us(sd, la, lb, Mr, sweeps: int, routes) -> dict:
+    """us per sweep of ``sweeps`` fixed sweeps on each of ``routes``, forced
+    by a stand-in route rule (the rule itself is not changed)."""
+    rule = sd.sinkhorn_route
+    out = {}
+    try:
+        for name in routes:
+            sd.sinkhorn_route = lambda *shape, name=name: sd.Route(name)
+            out[name] = cuda_ms(lambda: sd.sinkhorn_duals(
+                la, lb, Mr, sweeps, 0.0), 3) / sweeps * 1e3
+    finally:
+        sd.sinkhorn_route = rule
+    return out
 
 
 def sinkhorn_phase(Xs, wxs, Ys, wys, ot) -> dict:
@@ -780,17 +990,14 @@ def sinkhorn_phase(Xs, wxs, Ys, wys, ot) -> dict:
         f"real), reg {ot.reg}, num_itermax {ot.num_itermax}, stop_thr "
         f"{ot.stop_thr}")
     res = sinkhorn_checks(la, lb, Mr, ot, sd.KERNEL_NAME)
-    # the same sweeps on the two-read kernels (the long-rows route, forced
-    # by a stand-in route rule), timed in this process for the comparison
-    route_rule = sd.sinkhorn_route
-    sd.sinkhorn_route = lambda *shape: sd.Route(sd.LONG_ROWS)
-    try:
-        two_read_ms = cuda_ms(lambda: sd.sinkhorn_duals(
-            la, lb, Mr, ot.num_itermax, 0.0), 3)
-    finally:
-        sd.sinkhorn_route = route_rule
+    # the same sweeps on the two-read kernels and on the long-rows route's
+    # (forced by a stand-in route rule), timed in this process for the
+    # comparison
+    other = other_routes_us(sd, la, lb, Mr, ot.num_itermax,
+                            (sd.TWO_READ, sd.LONG_ROWS))
     log(f"Sinkhorn {n} x {m} per sweep on the two-read kernels: "
-        f"{two_read_ms / ot.num_itermax * 1e3:.2f} us (one pass "
+        f"{other[sd.TWO_READ]:.2f} us, on the long-rows route's: "
+        f"{other[sd.LONG_ROWS]:.2f} us (one pass "
         f"{res['ms_fixed'] / ot.num_itermax * 1e3:.2f} us)")
 
     # the engines: the main path of this phase first
@@ -830,24 +1037,52 @@ def sinkhorn_phase(Xs, wxs, Ys, wys, ot) -> dict:
             **sinkhorn_bound(n, m, res["sweeps"]), "library_ms": None}
 
 
-def sinkhorn_long_rows_phase(dev, ot) -> dict:
-    """Phase 5b's long-rows route: SINKHORN_LONG_ROWS_SHAPE seeded RGB
-    samples in [0, 1), uniform marginals, the plan's ``OTConfig``;
+def long_rows_samples(dev, n: int, m: int, seed: int) -> tuple:
+    """Seeded RGB samples in [0, 1): (n, 3) and (m, 3) on ``dev``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.random((k, 3), dtype=np.float32))
+                 .to(dev) for k in (n, m))
+
+
+def sinkhorn_fragile_stop(dev, ot) -> None:
+    """The long-rows route's stop rule where it is fragile: the first of
+    SINKHORN_LONG_ROWS_SHAPES with SINKHORN_FRAGILE_SEED, whose err at
+    sweep 50 lies ~1 % under stop_thr in the plain version.
+    :func:`sinkhorn_stop_rule` must hold there too; its us per sweep is
+    the number to set beside earlier readings of this input."""
+    import torch
+    from hyperres_torch.kernels.sinkhorn import marginal, sqeuclidean_cdist
+    from hyperres_torch.kernels.sinkhorn_duals import LONG_ROWS_NAME
+
+    n, m = SINKHORN_LONG_ROWS_SHAPES[0]
+    Xs, Ys = long_rows_samples(dev, n, m, SINKHORN_FRAGILE_SEED)
+    la = torch.log(marginal(None, n, dev))
+    lb = torch.log(marginal(None, m, dev))
+    Mr = -sqeuclidean_cdist(Xs, Ys) / ot.reg
+    log(f"Sinkhorn {n} x {m}, seed {SINKHORN_FRAGILE_SEED} (err near "
+        f"stop_thr at a check):")
+    sinkhorn_stop_rule(la, lb, Mr, ot, LONG_ROWS_NAME,
+                       SINKHORN_LONG_ROWS_ERR_ATOL)
+
+
+def sinkhorn_long_rows_phase(dev, ot, n: int, m: int) -> dict:
+    """Phase 5b's long-rows route at n x m: seeded RGB samples in [0, 1),
+    uniform marginals, the plan's ``OTConfig``;
     ``ot_barycentric_targets(engine="pallas")`` must launch the long-rows
     kernels and nothing else, then the checks of
-    :func:`sinkhorn_checks`. Returns the route's entry of the kernels
-    line."""
+    :func:`sinkhorn_checks`, and the two-read kernels timed on the same
+    sweeps. Returns the route's entry of the kernels line."""
     import torch
     from hyperres_torch.device import launch_counts, reset_launch_counts
     from hyperres_torch.kernels.sinkhorn import (
         marginal, ot_barycentric_targets, sqeuclidean_cdist,
     )
+    from hyperres_torch.kernels import sinkhorn_duals as sd
     from hyperres_torch.kernels.sinkhorn_duals import LONG_ROWS_NAME
 
-    n, m = SINKHORN_LONG_ROWS_SHAPE
-    rng = np.random.default_rng(11)
-    Xs = torch.from_numpy(rng.random((n, 3), dtype=np.float32)).to(dev)
-    Ys = torch.from_numpy(rng.random((m, 3), dtype=np.float32)).to(dev)
+    Xs, Ys = long_rows_samples(dev, n, m, SINKHORN_LONG_ROWS_SEED)
     reset_launch_counts()
     targets = ot_barycentric_targets(Xs, Ys, reg=ot.reg,
                                      num_itermax=ot.num_itermax,
@@ -866,6 +1101,11 @@ def sinkhorn_long_rows_phase(dev, ot) -> dict:
     Mr = -sqeuclidean_cdist(Xs, Ys) / ot.reg
     res = sinkhorn_checks(la, lb, Mr, ot, LONG_ROWS_NAME,
                           SINKHORN_LONG_ROWS_ERR_ATOL)
+    old = other_routes_us(sd, la, lb, Mr, ot.num_itermax, (sd.TWO_READ,))
+    log(f"Sinkhorn {n} x {m} per sweep on the two-read kernels: "
+        f"{old[sd.TWO_READ]:.2f} us (long-rows route "
+        f"{res['ms_fixed'] / ot.num_itermax * 1e3:.2f} us; plan "
+        f"{sd.long_rows_plan(n, m, torch.cuda.get_device_properties(dev).multi_processor_count)})")
     return {"name": LONG_ROWS_NAME, "route": "cuda",
             "source": SINKHORN_SOURCE, "replaces": SINKHORN_REPLACES,
             "launches": counts[LONG_ROWS_NAME], "max_abs_err": res["p_err"],
@@ -1124,19 +1364,48 @@ def quantize_phase(cube, launches: int) -> dict:
 def srf_phase(cube, wavelengths, good) -> dict:
     """Phase 11: ``srf_synthesize_auto(use_pallas=True)`` on the ortho
     phase's UTM cube (S2A's 13 bands), which must launch the kernel;
-    then the kernel against its plain version at S = 13 and S = 3 with
-    the valid-pixel mask, and the kernel, its plain version and
-    ``torch.matmul`` timed. Returns the kernel's entry of the kernels
-    line (S = 13)."""
+    then the kernel (tiled route) and the warp kernel against the plain
+    version at S = 13 and S = 3 with the valid-pixel mask, and the
+    kernels, the plain version and ``torch.matmul`` timed; then the
+    seeded shapes of SRF_WIDE_SHAPES. Returns the kernel's entry of the
+    kernels line (S = 13)."""
     import torch
     from hyperres_torch.core.constants import NO_DATA_VALUE
     from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.kernels._build import load_library
     from hyperres_torch.kernels.host import build_srf_weight_matrix
+    from hyperres_torch.kernels import srf
     from hyperres_torch.kernels.srf import (
-        KERNEL_NAME, pallas_srf_synthesize, srf_synthesize_auto,
+        KERNEL_NAME, ROUTE_NAMES, pallas_srf_synthesize, srf_synthesize_auto,
         srf_synthesize_reference,
     )
     from hyperres_torch.spectral.srf_tables import builtin_srf
+
+    def on_route(route, x, W, v):
+        """``pallas_srf_synthesize`` with ``route`` forced by a stand-in
+        rule (the rule itself is not changed); the run must count one
+        launch under that route's name."""
+        rule = srf.srf_route
+        srf.srf_route = lambda b, s: (route, 0)
+        reset_launch_counts()
+        try:
+            out = pallas_srf_synthesize(x, W, v)
+        finally:
+            srf.srf_route = rule
+        if dict(launch_counts) != {ROUTE_NAMES[route]: 1}:
+            fail(f"the forced {route} route should count one launch as "
+                 f"{ROUTE_NAMES[route]}: {dict(launch_counts)}")
+        return out
+
+    def plan_matches_mirror(b: int, s: int) -> None:
+        lib = load_library("srf_synthesize")
+        for r in (2, 1):
+            if lib.srf_tiled_smem_bytes(b, s, r) != srf._tiled_smem_bytes(
+                    b, s, r):
+                fail(f"the tiled SRF kernel plans "
+                     f"{lib.srf_tiled_smem_bytes(b, s, r)} bytes of shared "
+                     f"memory at B={b}, S={s}, R={r}; the wrapper "
+                     f"{srf._tiled_smem_bytes(b, s, r)}")
 
     h, w, b = cube.shape
     valid_hw = (cube != NO_DATA_VALUE).all(dim=-1)
@@ -1149,43 +1418,108 @@ def srf_phase(cube, wavelengths, good) -> dict:
         Wt = torch.from_numpy(np.ascontiguousarray(W, np.float32)).to(
             cube.device)
         s = Wt.shape[1]
+        if srf.srf_route(b, s)[0] != srf.TILED:
+            fail(f"B = {b}, S = {s} should take the tiled route")
+        plan_matches_mirror(b, s)
         if bands is None:
             reset_launch_counts()
             out = srf_synthesize_auto(cube, Wt, valid_hw, use_pallas=True)
             torch.cuda.synchronize()
             launches = launch_counts.get(KERNEL_NAME, 0)
             log(f"srf_synthesize_auto(use_pallas=True) on the UTM cube: "
-                f"{tuple(out.shape)}, launches {launches}")
-            if tuple(out.shape) != (h, w, s) or launches < 1:
+                f"{tuple(out.shape)}, launches {dict(launch_counts)}")
+            if (tuple(out.shape) != (h, w, s)
+                    or dict(launch_counts) != {KERNEL_NAME: 1}):
                 fail("srf_synthesize_auto(use_pallas=True) did not run the "
-                     "kernel to an (H, W, S) cube")
+                     "tiled kernel once to an (H, W, S) cube")
             del out
-        got = pallas_srf_synthesize(flat, Wt, v)
         want = srf_synthesize_reference(flat, Wt, v)
-        err = float((got - want).abs().max())
-        fill_ok = bool(torch.equal(got[~v], want[~v])
-                       and bool((got[~v] == NO_DATA_VALUE).all()))
-        del got, want
+        errs, fills = {}, {}
+        for route in (srf.TILED, srf.WARP):
+            got = (pallas_srf_synthesize(flat, Wt, v) if route == srf.TILED
+                   else on_route(route, flat, Wt, v))
+            errs[route] = float((got - want).abs().max())
+            fills[route] = bool(torch.equal(got[~v], want[~v])
+                                and bool((got[~v] == NO_DATA_VALUE).all()))
+            del got
+        del want
+        err = errs[srf.TILED]
         ms = cuda_ms(lambda: pallas_srf_synthesize(flat, Wt, v), 10)
         plain_ms = cuda_ms(lambda: srf_synthesize_reference(flat, Wt, v), 3)
         library_ms = cuda_ms(lambda: torch.matmul(flat, Wt), 10)
+        warp_ms = cuda_ms(lambda: on_route(srf.WARP, flat, Wt, v), 10)
         # only the valid rows need reading: an invalid row's outputs are
         # the fill
         work = bound(4.0 * (n_valid * b + b * s + n * s) + n,
                      2.0 * n_valid * b * s)
-        log(f"check SRF S={s} ({','.join(names)}): max abs err {err:.3e} "
-            f"(tol {SRF_TOL:g}), fill exact {fill_ok}; kernel {ms:.3f} ms, "
+        log(f"check SRF S={s} ({','.join(names)}): max abs err {err:.3e}, "
+            f"the warp kernel's {errs[srf.WARP]:.3e} "
+            f"(tol {SRF_TOL:g}), fill exact {fills}; route "
+            f"{srf.srf_route(b, s)}; kernel {ms:.3f} ms, the warp kernel "
+            f"{warp_ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, torch.matmul {library_ms:.3f} ms, "
             f"bound {work['bound_ms']:.3f} ms ({work['bound_by']}); "
             f"{n_valid} of {n} rows valid")
-        if not (err <= SRF_TOL and fill_ok):
-            fail(f"srf_synthesize disagrees with its plain version at S={s}")
+        if not (max(errs.values()) <= SRF_TOL and all(fills.values())):
+            fail(f"an srf_synthesize route disagrees with the plain version "
+                 f"at S={s}")
         if entry is None:
             entry = {"name": KERNEL_NAME, "route": "cuda",
                      "source": SRF_SOURCE, "replaces": SRF_REPLACES,
                      "launches": launches, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms, **work}
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
+
+    rng = np.random.default_rng(5)
+    for bw, sw, route in SRF_WIDE_SHAPES:
+        x = torch.from_numpy(rng.random((SRF_WIDE_ROWS, bw),
+                                        dtype=np.float32)).to(cube.device)
+        Ww = torch.from_numpy(rng.random((bw, sw),
+                                         dtype=np.float32)).to(cube.device)
+        vw = torch.from_numpy(rng.random(SRF_WIDE_ROWS) > 0.1).to(cube.device)
+        if srf.srf_route(bw, sw)[0] != route:
+            fail(f"B = {bw}, S = {sw} should take the {route} route, not "
+                 f"{srf.srf_route(bw, sw)}")
+        if route == srf.TILED:
+            plan_matches_mirror(bw, sw)
+        reset_launch_counts()
+        got = pallas_srf_synthesize(x, Ww, vw)
+        counts = dict(launch_counts)
+        want = srf_synthesize_reference(x, Ww, vw)
+        err = float((got - want).abs().max())
+        scale = float(want[vw].abs().max())
+        fill_ok = bool((got[~vw] == NO_DATA_VALUE).all())
+        ms = cuda_ms(lambda: pallas_srf_synthesize(x, Ww, vw), 10)
+        plain_ms = cuda_ms(lambda: srf_synthesize_reference(x, Ww, vw), 3)
+        library_ms = cuda_ms(lambda: torch.matmul(x, Ww), 10)
+        n_ok = int(vw.sum())
+        work = bound(4.0 * (n_ok * bw + bw * sw + SRF_WIDE_ROWS * sw)
+                     + SRF_WIDE_ROWS, 2.0 * n_ok * bw * sw)
+        log(f"check SRF B={bw} S={sw} ({SRF_WIDE_ROWS} seeded rows), route "
+            f"{srf.srf_route(bw, sw)}: max abs err {err:.3e} = "
+            f"{err / scale:.3e} of the largest output (tol "
+            f"{SRF_WIDE_RTOL:g}), fill exact {fill_ok}, launches "
+            f"{counts}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"torch.matmul {library_ms:.3f} ms, bound "
+            f"{work['bound_ms']:.3f} ms ({work['bound_by']})")
+        if not (err <= SRF_WIDE_RTOL * scale and fill_ok
+                and counts == {ROUTE_NAMES[route]: 1}):
+            fail(f"srf_synthesize disagrees with its plain version at "
+                 f"B={bw}, S={sw}, or launched {counts}")
+        if route == srf.WARP:
+            # what these rows would cost without the warp route
+            gen = on_route(srf.GENERIC, x, Ww, vw)
+            gen_err = float((gen - want).abs().max())
+            gen_ms = cuda_ms(lambda: on_route(srf.GENERIC, x, Ww, vw), 10)
+            log(f"SRF B={bw} S={sw}: the generic kernel on the same rows "
+                f"{gen_ms:.3f} ms (the warp route {ms:.3f} ms), max abs "
+                f"err {gen_err / scale:.3e} of the largest output")
+            if not (gen_err <= SRF_WIDE_RTOL * scale
+                    and bool((gen[~vw] == NO_DATA_VALUE).all())):
+                fail(f"the generic SRF kernel disagrees with the plain "
+                     f"version at B={bw}, S={sw}")
+            del gen
+        del x, Ww, vw, got, want
     return entry
 
 
@@ -1202,7 +1536,8 @@ def main() -> None:
                          text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    card_line = smi.stdout.strip().splitlines()[0]
+    log(card_line)
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
@@ -1331,7 +1666,10 @@ def main() -> None:
     utm_cube = plan.warp(raw)
     samples = plan.ot_samples(utm_cube, s2, plan.generator(0))
     kernels.append(sinkhorn_phase(*samples, plan.statics.ot))
-    kernels.append(sinkhorn_long_rows_phase(dev, plan.statics.ot))
+    long_rows = [sinkhorn_long_rows_phase(dev, plan.statics.ot, n, m)
+                 for n, m in SINKHORN_LONG_ROWS_SHAPES]
+    sinkhorn_fragile_stop(dev, plan.statics.ot)
+    kernels.append(long_rows[0])
     del samples, utm_cube
 
     # -- 5c. the ot_affine plan --------------------------------------------
@@ -1344,7 +1682,7 @@ def main() -> None:
     del out, aplan, raw, s2, plan, scene
     torch.cuda.empty_cache()
 
-    kernels.append(sr_phases(dev))
+    kernels.extend(sr_phases(dev))
     torch.cuda.empty_cache()
 
     # -- 9-11. the ortho export path and its two kernels ------------------
@@ -1356,6 +1694,8 @@ def main() -> None:
                              ortho["good"]))
     del ortho
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
+    # again, beside the numbers: a caller may keep only the output's end
+    log(card_line)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -25,7 +25,8 @@
 // 5000, OTConfig()) Mr is 100 MB, twice the 50 MB L2, so every sweep
 // streams it from HBM: one read is ~30 us at 3.35 TB/s. The exps (n m
 // expf per sweep) stay below that. Two routes, chosen by shape on the
-// host (sinkhorn_duals.py:sinkhorn_route):
+// host (sinkhorn_duals.py:sinkhorn_route), and the earlier two-read
+// kernels kept for timing beside them:
 //
 // One pass (m <= kOnePassCols): Mr is read once per sweep, as the TPU
 // kernel reads it.
@@ -50,15 +51,40 @@
 //     them in a fixed order (8 contiguous runs of rows, then the 8 run
 //     sums): two launches per sweep, HBM traffic one read of Mr plus the
 //     partials.
-// Long rows (the rest): the two-read kernels, three launches per sweep.
+// Long rows (the rest; few rows, each longer than a block can hold): the
+// rows are cut into column slices so that the grid fills the card
+// whatever n is. Two launches per sweep (three when the column pass is
+// also cut along the rows):
+//   - slice kernel: a block takes a slice of 4096 columns of a few rows;
+//     each of its 8 warps owns 512 of the columns (16 per lane, 16-byte
+//     loads when the rows are 16-byte aligned, g for them in registers)
+//     and, per row, takes max and sum of exp in ONE read: the 16 values
+//     stay in registers between the two, a butterfly each, no block
+//     barrier; the next row's loads are issued before this row's
+//     reductions. The warps' (max, sum) pairs of each row are merged in warp
+//     order (sum_w s_w exp(m_w - max)) and written per (row, slice). The
+//     block that finishes a group of rows last (one counter per group,
+//     set back to 0 by that block) merges the slices' pairs of the
+//     group's rows, a warp per row in a fixed order, into rmax_i and
+//     rowsum_i, hence rlse_i, f_i, err_i and u_i = a_i / rowsum_i, in
+//     global memory: no merge launch, and the column kernel has no
+//     prologue;
+//   - column kernel: a block of 8 warps takes 128 columns (4 per lane,
+//     one 16-byte load per row where the rows are 16-byte aligned) and
+//     all rows (or a chunk of them when the columns alone do not fill the
+//     card). The warps take every 8th row, last row first (Mr is about an
+//     L2 in size on this route and the slice kernel went first row to
+//     last, so this read finds the later rows still in L2), s_j = sum_i
+//     exp(Mr_ij + g_j - rmax_i) u_i, the warps' sums added in warp order;
+//     with one chunk the block owns its columns whole and updates g_j
+//     itself; with more, the partials go to the g kernel below.
+// Two reads (kept for timing beside both routes): three launches per sweep.
 //   - row kernel: one block per row, a max pass and an exp/sum pass,
-//     reads along the row coalesced; it writes f_i, rmax_i, u_i = a_i /
-//     rowsum_i and err_i;
-//   - column kernel: threads along j, each block loops over one chunk of
-//     rows, so every warp reads 32 neighbouring floats of a row; it
-//     recomputes exp(Mr_ij + g_j - rmax_i) * u_i (the same float
-//     operations as the row kernel) and writes one partial column sum
-//     per chunk; the chunks are sized to fill the card;
+//     reads along the row coalesced with 4-byte loads; it writes f_i,
+//     rmax_i, u_i = a_i / rowsum_i and err_i. At n = 128 that is 128
+//     blocks on 132 SMs, each streaming a 400 KB row twice: too little in
+//     flight (116.82 us per sweep at 128 x 100,000 on an H100);
+//   - column kernel: as above without the prologue, always into partials;
 //   - g kernel: sums the chunks' partials in chunk order and updates g.
 // Every reduction runs in a fixed order (no float atomics), so two runs
 // on one card give the same bits; the one-pass result depends on the
@@ -180,6 +206,237 @@ sinkhorn_g_kernel(const float* __restrict__ partial,
   for (int c = 0; c < chunks; ++c) s += partial[(int64_t)c * m + j];
   // the floor must be a normal f32 (1e-38 is subnormal)
   g[j] = (log_b[j] - logf(fmaxf(s, 1e-37f))) + g[j];
+}
+
+// ---- the long-rows route: column slices --------------------------------
+
+constexpr int kSliceWarps = 8;
+constexpr int kSliceThreads = 32 * kSliceWarps;
+constexpr int kLaneCols = 16;                       // columns per lane
+constexpr int kWarpCols = 32 * kLaneCols;           // 512 per warp
+constexpr int kSliceCols = kSliceWarps * kWarpCols; // 4096 per block
+constexpr int kSliceMaxRows = 64;                   // rows per block
+
+// (max, sum of exp) of rows [blockIdx.y * rows_per_block, +rows_per_block)
+// over the columns [blockIdx.x * kSliceCols, +kSliceCols) of Mr + g, one
+// pair per row and slice into pmax / psum (n x gridDim.x). kVec: rows are
+// 16-byte aligned (m % 4 == 0 and Mr aligned), lane l holds columns
+// 4 (32 q + l) .. + 3 of its warp's 512 (q < 4); otherwise 32 q + l
+// (q < 16).
+// The block that finishes a row group last (a counter per group, left at
+// 0 again) merges the group's pairs, a warp per row: each lane the slices
+// lane, lane + 32, ... in order, then a butterfly over the lanes' pairs (a
+// fixed order, whichever block runs it), into rmax_i, u_i = a_i / rowsum_i,
+// err_i and f_i.
+template <bool kVec>
+__global__ void __launch_bounds__(kSliceThreads)
+sinkhorn_slice_kernel(const float* __restrict__ Mr,
+                      const float* __restrict__ g,
+                      const float* __restrict__ log_a, float* pmax,
+                      float* psum, float* __restrict__ f,
+                      float* __restrict__ rmax_out, float* __restrict__ u_out,
+                      float* __restrict__ err_row, unsigned int* counters,
+                      int64_t n, int64_t m, int rows_per_block) {
+  __shared__ float wmax[kSliceWarps][kSliceMaxRows];
+  __shared__ float wsum[kSliceWarps][kSliceMaxRows];
+  __shared__ bool last_block;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t c0 = (int64_t)blockIdx.x * kSliceCols + warp * kWarpCols;
+  const int64_t i0 = (int64_t)blockIdx.y * rows_per_block;
+  const int nr = (int)(n - i0 < rows_per_block ? n - i0 : rows_per_block);
+
+  // column k of this lane, as an offset from c0
+  auto col_of = [&](int k) {
+    return kVec ? 4 * (32 * (k >> 2) + lane) + (k & 3) : 32 * k + lane;
+  };
+  const int left = (int)(m - c0 < kWarpCols ? m - c0 : kWarpCols);  // <= 0: none
+  float gj[kLaneCols];
+#pragma unroll
+  for (int k = 0; k < kLaneCols; ++k) {
+    gj[k] = col_of(k) < left ? g[c0 + col_of(k)] : 0.0f;
+  }
+  // a row's 16 values of this lane (0 past the row's end)
+  auto load_row = [&](int r, float (&v)[kLaneCols]) {
+    const float* row = Mr + (i0 + r) * m + c0;
+    if (kVec) {
+#pragma unroll
+      for (int q = 0; q < kLaneCols / 4; ++q) {
+        float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (col_of(4 * q) < left) {   // m % 4 == 0: all four or none
+          t = *reinterpret_cast<const float4*>(row + col_of(4 * q));
+        }
+        v[4 * q] = t.x;
+        v[4 * q + 1] = t.y;
+        v[4 * q + 2] = t.z;
+        v[4 * q + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kLaneCols; ++k) {
+        v[k] = col_of(k) < left ? row[col_of(k)] : 0.0f;
+      }
+    }
+  };
+  float raw[kLaneCols];
+  if (nr > 0) load_row(0, raw);
+  for (int r = 0; r < nr; ++r) {
+    float z[kLaneCols];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kLaneCols; ++k) {
+      z[k] = col_of(k) < left ? raw[k] + gj[k] : -INFINITY;
+      mx = fmaxf(mx, z[k]);
+    }
+    // the next row's loads are in flight while this one is reduced
+    if (r + 1 < nr) load_row(r + 1, raw);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    }
+    float sum = 0.0f;
+    if (left > 0) {   // else the warp holds no column: (-inf, 0)
+#pragma unroll
+      for (int k = 0; k < kLaneCols; ++k) sum += expf(z[k] - mx);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    }
+    if (lane == 0) {
+      wmax[warp][r] = mx;
+      wsum[warp][r] = sum;
+    }
+  }
+  __syncthreads();
+  // the block's pair of each row: its warps' pairs in warp order (warp 0
+  // always holds a column, so the max is finite; exp(-inf) adds 0)
+  for (int r = threadIdx.x; r < nr; r += kSliceThreads) {
+    float mx = wmax[0][r];
+#pragma unroll
+    for (int w = 1; w < kSliceWarps; ++w) mx = fmaxf(mx, wmax[w][r]);
+    float sum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kSliceWarps; ++w) {
+      sum += wsum[w][r] * expf(wmax[w][r] - mx);
+    }
+    pmax[(i0 + r) * gridDim.x + blockIdx.x] = mx;
+    psum[(i0 + r) * gridDim.x + blockIdx.x] = sum;
+  }
+  // this block's pairs are out before its count is
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int before = atomicAdd(&counters[blockIdx.y], 1u);
+    last_block = before == gridDim.x - 1;
+    if (last_block) counters[blockIdx.y] = 0u;
+  }
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  const int n_slices = (int)gridDim.x;
+  for (int r = warp; r < nr; r += kSliceWarps) {
+    const int64_t i = i0 + r;
+    const float* pm = pmax + i * n_slices;
+    const float* ps = psum + i * n_slices;
+    float mx = -INFINITY, sum = 0.0f;
+    for (int c = lane; c < n_slices; c += 32) {
+      // other blocks wrote these: read them past L1
+      const float pmc = __ldcg(pm + c);
+      const float nmx = fmaxf(mx, pmc);   // finite: every slice has columns
+      sum = sum * expf(mx - nmx) + __ldcg(ps + c) * expf(pmc - nmx);
+      mx = nmx;
+    }
+    float all = mx;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      all = fmaxf(all, __shfl_xor_sync(0xffffffffu, all, o));
+    }
+    sum = mx == -INFINITY ? 0.0f : sum * expf(mx - all);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    }
+    if (lane == 0) {
+      const float rlse = all + logf(sum);
+      const float la = log_a[i];
+      const float a = expf(la);
+      err_row[i] = fabsf(expf(f[i] + rlse) - a);
+      f[i] = la - rlse;
+      rmax_out[i] = all;
+      u_out[i] = a / sum;
+    }
+  }
+}
+
+constexpr int kColWarps = kColThreads / 32;
+constexpr int kColCols = 128;   // columns per block: 4 per lane
+
+// The column pass over rows [blockIdx.y * rows_per_chunk, +rows_per_chunk)
+// for the columns [blockIdx.x * 128, +128): lane l holds 4 of them (4 l ..
+// 4 l + 3 with kVec, one 16-byte load per row; else l, l + 32, ...), the 8
+// warps take every 8th row, last row first, and their sums are added in
+// warp order. kFinal (one chunk): g is updated here; otherwise the chunk's
+// partial column sums are written.
+template <bool kVec, bool kFinal>
+__global__ void __launch_bounds__(kColThreads)
+sinkhorn_col_sliced_kernel(const float* __restrict__ Mr, float* g,
+                           const float* __restrict__ log_b,
+                           const float* __restrict__ rmax,
+                           const float* __restrict__ u,
+                           float* __restrict__ partial, int64_t n, int64_t m,
+                           int rows_per_chunk) {
+  __shared__ float red[kColWarps][kColCols];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t j0 = (int64_t)blockIdx.x * kColCols;
+  const int left = (int)(m - j0 < kColCols ? m - j0 : kColCols);
+  const int64_t i0 = (int64_t)blockIdx.y * rows_per_chunk;
+  const int nr = (int)(n - i0 < rows_per_chunk ? n - i0 : rows_per_chunk);
+  auto col_of = [&](int q) { return kVec ? 4 * lane + q : lane + 32 * q; };
+  float gj[4], acc[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    gj[q] = col_of(q) < left ? g[j0 + col_of(q)] : 0.0f;
+    acc[q] = 0.0f;
+  }
+  // last row first: the slice kernel ended on the last rows, so these
+  // reads find in L2 what it still holds of them (and end on the first
+  // rows, where the next sweep's slice kernel starts)
+#pragma unroll 4
+  for (int r = nr - 1 - warp; r >= 0; r -= kColWarps) {
+    const float* row = Mr + (i0 + r) * m + j0;
+    const float rm = __ldg(rmax + i0 + r);
+    const float ur = __ldg(u + i0 + r);
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (kVec) {
+      if (col_of(0) < left) {   // m % 4 == 0: all four or none
+        const float4 t = *reinterpret_cast<const float4*>(row + col_of(0));
+        v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (col_of(q) < left) v[q] = row[col_of(q)];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] += expf((v[q] + gj[q]) - rm) * ur;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) red[warp][col_of(q)] = acc[q];
+  __syncthreads();
+  if (threadIdx.x < left) {
+    float s = red[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kColWarps; ++w) s += red[w][threadIdx.x];
+    const int64_t j = j0 + threadIdx.x;
+    if (kFinal) {
+      g[j] = (log_b[j] - logf(fmaxf(s, 1e-37f))) + g[j];
+    } else {
+      partial[(int64_t)blockIdx.y * m + j] = s;
+    }
+  }
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -465,9 +722,79 @@ extern "C" int sinkhorn_duals_onepass_sweeps(
 }
 
 // The long-rows route: `sweeps` Sinkhorn sweeps on f (n) and g (m) in
-// place, then the last sweep's row-marginal error in err[0]. Scratch:
-// rmax, u, err_row (n each) and partial (chunks x m); rows_per_chunk =
-// ceil(n / chunks).
+// place, then the last sweep's row-marginal error in err[0]. The slice
+// kernel runs on a grid of n_slices = ceil(m / 4096) by ceil(n /
+// rows_per_block) blocks (rows_per_block <= 64), the column kernel on
+// ceil(m / 128) by `chunks` blocks of rows_per_chunk = ceil(n / chunks)
+// rows. Scratch: pmax, psum (n x n_slices each), rmax, u, err_row (n
+// each), counters (ceil(n / rows_per_block) unsigned ints, zero before the
+// first call and left zero) and partial (chunks x m, used only when
+// chunks > 1).
+template <bool kVec>
+static cudaError_t sliced_sweep(const float* Mr, const float* log_a,
+                                const float* log_b, float* f, float* g,
+                                float* pmax, float* psum, float* rmax,
+                                float* u, float* err_row,
+                                unsigned int* counters, float* partial,
+                                long long n, long long m, int n_slices,
+                                int rows_per_block, int chunks,
+                                cudaStream_t st) {
+  const long long col_blocks = (m + kColCols - 1) / kColCols;
+  const long long rows_per_chunk = (n + chunks - 1) / chunks;
+  const long long row_groups = (n + rows_per_block - 1) / rows_per_block;
+  const dim3 slice_grid((unsigned int)n_slices, (unsigned int)row_groups);
+  const dim3 col_grid((unsigned int)col_blocks, (unsigned int)chunks);
+  sinkhorn_slice_kernel<kVec><<<slice_grid, kSliceThreads, 0, st>>>(
+      Mr, g, log_a, pmax, psum, f, rmax, u, err_row, counters, n, m,
+      rows_per_block);
+  if (chunks == 1) {
+    sinkhorn_col_sliced_kernel<kVec, true><<<col_grid, kColThreads, 0, st>>>(
+        Mr, g, log_b, rmax, u, partial, n, m, (int)rows_per_chunk);
+  } else {
+    sinkhorn_col_sliced_kernel<kVec, false><<<col_grid, kColThreads, 0, st>>>(
+        Mr, g, log_b, rmax, u, partial, n, m, (int)rows_per_chunk);
+    sinkhorn_g_kernel<<<(unsigned int)((m + kColThreads - 1) / kColThreads),
+                        kColThreads, 0, st>>>(partial, log_b, g, m, chunks);
+  }
+  return cudaGetLastError();
+}
+
+extern "C" int sinkhorn_duals_sliced_sweeps(
+    const float* Mr, const float* log_a, const float* log_b, float* f,
+    float* g, float* pmax, float* psum, float* rmax, float* u,
+    float* err_row, unsigned int* counters, float* partial, float* err,
+    long long n, long long m, int n_slices, int rows_per_block, int chunks,
+    int sweeps, void* stream) {
+  if (n <= 0 || m <= 0 || chunks <= 0 || sweeps < 0 || rows_per_block < 1
+      || rows_per_block > kSliceMaxRows
+      || (long long)n_slices * kSliceCols < m
+      || (long long)(n_slices - 1) * kSliceCols >= m) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((m + kColCols - 1) / kColCols > 0x7fffffffLL || chunks > 65535
+      || (n + rows_per_block - 1) / rows_per_block > 65535) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool vec = m % 4 == 0 && ((uintptr_t)Mr & 15) == 0;
+  for (int k = 0; k < sweeps; ++k) {
+    const cudaError_t e =
+        vec ? sliced_sweep<true>(Mr, log_a, log_b, f, g, pmax, psum, rmax, u,
+                                 err_row, counters, partial, n, m, n_slices,
+                                 rows_per_block, chunks, st)
+            : sliced_sweep<false>(Mr, log_a, log_b, f, g, pmax, psum, rmax,
+                                  u, err_row, counters, partial, n, m,
+                                  n_slices, rows_per_block, chunks, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  sum_kernel<<<1, kSumThreads, 0, st>>>(err_row, n, err);
+  return (int)cudaGetLastError();
+}
+
+// The two-read kernels (kept for timing): `sweeps` Sinkhorn sweeps on f (n)
+// and g (m) in place, then the last sweep's row-marginal error in err[0].
+// Scratch: rmax, u, err_row (n each) and partial (chunks x m);
+// rows_per_chunk = ceil(n / chunks).
 extern "C" int sinkhorn_duals_sweeps(
     const float* Mr, const float* log_a, const float* log_b, float* f,
     float* g, float* rmax, float* u, float* err_row, float* partial,

@@ -79,11 +79,25 @@
 //     validity flag per accumulator, then the tile goes through shared
 //     memory so both layouts store coalesced (pixels contiguous per band
 //     in cmajor, bands contiguous per pixel in rowmajor).
-// Shared memory holds W's hi and lo, 256 bytes per K column at 32 bands,
-// and the pair entries: up to 800 K columns at 32 bands and 1632 at 16
-// (1600 at degree 4); more are refused (cudaErrorInvalidValue; the
-// wrapper raises first). Offsets are 64-bit: at 85 Mpx x 32 bands Q has
-// 2.7e9 elements.
+// Two routes, chosen by shape on the host (kernels/sr_predict.py:
+// sr_route) before launch:
+//   - resident: shared memory holds W's hi and lo for the CTA's band tile,
+//     256 bytes per K column at 32 bands, and the pair entries: up to 800
+//     K columns at 32 bands and 1632 at 16 (1600 at degree 4);
+//   - streamed (more K columns: 12 bands at degree 4 take 2080): the host
+//     splits W once per model and lays it out in global memory as slabs of
+//     kChunkK K columns x [W_hi | W_lo] of 32 bands, each slab already in
+//     the core-matrix layout. The CTA keeps a ring of kStages slabs in
+//     shared memory, filled by 16-byte cp.async kStages - 1 chunks ahead of
+//     the chunk being multiplied; its two warpgroups walk K in step (one
+//     __syncthreads per chunk: the chunk's copies have landed, and every
+//     wgmma that read the slot about to be refilled was waited for). The
+//     stream runs on across the CTA's tiles (W stays in L2: 4.1 MB at F =
+//     1819, By = 285). The pair entries stay resident (at most 5600 K
+//     columns for 16 bands at degree 4, 45 KB). The k8 steps, the two
+//     accumulator chains and their order are the resident route's, so
+//     both routes give the same codes.
+// Offsets are 64-bit: at 85 Mpx x 32 bands Q has 2.7e9 elements.
 //
 // C interface (built with nvcc into a shared library, loaded by ctypes):
 // launches on the caller's stream, allocates nothing, and returns
@@ -108,6 +122,8 @@ constexpr int kXsStride = kTileM + 8;          // floats per xs row
 constexpr int kOutStride = kTileM + 2;         // u16 per staged band row
 constexpr int kBandsPerThread = kMaxBx / 2;    // two threads per pixel
 constexpr int kMaxSmem = 232448;               // bytes a CTA may use
+constexpr int kStages = 4;                     // W slabs in the streamed ring
+constexpr int kStreamBN = 32;                  // bands per CTA, streamed
 
 // Bytes of one warpgroup's scratch: standardised inputs (row 0 is the
 // constant one), two validity halves, the staged u16 tile.
@@ -128,6 +144,26 @@ __host__ __device__ constexpr size_t smem_bytes(int bn, int kpad,
          + (size_t)(kpad / 2) * pair_words(degree) * 4   // pair entries
          + (size_t)2 * kMaxBx * 4                   // mean, std
          + (size_t)kWarpgroups * wg_bytes(bn);
+}
+
+// Floats of one streamed slab: kChunkK K columns of [W_hi | W_lo]
+__host__ __device__ constexpr int slab_floats(int bn) {
+  return 2 * bn * kChunkK;
+}
+
+__host__ __device__ constexpr size_t smem_bytes_streamed(int bn, int kpad,
+                                                         int degree) {
+  return (size_t)kStages * slab_floats(bn) * 4      // the ring of slabs
+         + (size_t)(kpad / 2) * pair_words(degree) * 4
+         + (size_t)2 * kMaxBx * 4
+         + (size_t)kWarpgroups * wg_bytes(bn);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
 }
 
 // cvt.rna.tf32.f32 (nearest, ties away from zero, 10 mantissa bits) in
@@ -271,7 +307,9 @@ __device__ __forceinline__ float nan_to_num(float x) {
   return isnan(x) ? 0.0f : fminf(fmaxf(x, -FLT_MAX), FLT_MAX);
 }
 
-template <int D, int BN>
+// kStream: W points at the host-made slabs (see the header) and `src` is
+// not read; otherwise W is the (F, By) matrix and the CTA splits its tile
+template <int D, int BN, bool kStream>
 __global__ void __launch_bounds__(kThreads, 2)
 sr_predict_tc_kernel(const float* __restrict__ X,
                      const uint8_t* __restrict__ mask,
@@ -287,8 +325,11 @@ sr_predict_tc_kernel(const float* __restrict__ X,
                      int64_t n_tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kWords = pair_words(D);
-  float* w_s = reinterpret_cast<float*>(smem);   // B: 2 BN rows x kpad
-  uint32_t* pair_s = reinterpret_cast<uint32_t*>(w_s + 2 * BN * kpad);
+  constexpr int kSlab = slab_floats(BN);
+  // B: 2 BN rows x kpad, or the ring of kStages slabs
+  float* w_s = reinterpret_cast<float*>(smem);
+  uint32_t* pair_s = reinterpret_cast<uint32_t*>(
+      w_s + (kStream ? kStages * kSlab : 2 * BN * kpad));
   const int wg = threadIdx.x >> 7;
   const int tid = threadIdx.x & 127;
   float* mean_s = reinterpret_cast<float*>(pair_s + (kpad / 2) * kWords);
@@ -303,7 +344,7 @@ sr_predict_tc_kernel(const float* __restrict__ X,
   // rows n < BN hold W_hi^T, rows BN + n hold W_lo^T --------------------
   const int j0 = blockIdx.y * BN;
   const int kc4 = kpad / 4;
-  for (int e = threadIdx.x; e < kpad * BN; e += kThreads) {
+  for (int e = threadIdx.x; !kStream && e < kpad * BN; e += kThreads) {
     const int k = e / BN;
     const int n = e - k * BN;
     const int m = src[k];   // W row of K column k, -1 for padding
@@ -339,6 +380,8 @@ sr_predict_tc_kernel(const float* __restrict__ X,
   __syncthreads();
 
   const uint64_t desc = smem_desc(w_s, 128, kc4 * 128);
+  // a slab is 2 BN rows x kChunkK: kChunkK / 4 core matrices along K
+  const uint64_t ring_desc = smem_desc(w_s, 128, (kChunkK / 4) * 128);
   const int warp = tid >> 5;
   const int g = (tid & 31) >> 2;
   const int t = tid & 3;
@@ -385,8 +428,38 @@ sr_predict_tc_kernel(const float* __restrict__ X,
   const int64_t wg0 = (int64_t)blockIdx.x * kWarpgroups + wg;
   const int64_t wg_stride = (int64_t)gridDim.x * kWarpgroups;
   const uint32_t bar = 1 + wg;   // named barrier of this warpgroup
-  if (wg0 < n_tiles) load_tile(wg0);
-  for (int64_t tile = wg0; tile < n_tiles; tile += wg_stride) {
+
+  // streamed: the CTA's slabs (chunk c at wsl + c kSlab) go round the ring
+  // in the order the K loops below read them, tile after tile. The tile
+  // loop is then the same for both warpgroups (the second may run a tile
+  // past the end: its loads and stores are masked).
+  const float* wsl = W + (size_t)blockIdx.y * (kpad / kChunkK) * kSlab;
+  const int64_t cta_iters =
+      kStream ? (n_tiles - wg0 + wg + wg_stride - 1) / wg_stride : 0;
+  int64_t to_issue = cta_iters * (kpad / kChunkK);
+  int issue_chunk = 0, issue_slot = 0, slot = 0;
+  auto issue = [&]() {
+    if (to_issue > 0) {
+      const float* from = wsl + (size_t)issue_chunk * kSlab;
+      float* to = w_s + issue_slot * kSlab;
+      for (int e = threadIdx.x; e < kSlab / 4; e += kThreads) {
+        cp_async16(to + 4 * e, from + 4 * e);
+      }
+      --to_issue;
+      if (++issue_chunk == kpad / kChunkK) issue_chunk = 0;
+      if (++issue_slot == kStages) issue_slot = 0;
+    }
+    // one group per call, empty past the end, so every wait counts alike
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  if (kStream) {
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) issue();
+  }
+
+  if (kStream || wg0 < n_tiles) load_tile(wg0);
+  for (int64_t tile = wg0; (kStream ? tile - wg : tile) < n_tiles;
+       tile += wg_stride) {
     // the prefetched inputs, standardised, into xs
 #pragma unroll
     for (int i = 0; i < kBandsPerThread; ++i) {
@@ -413,6 +486,17 @@ sr_predict_tc_kernel(const float* __restrict__ X,
     // SM fill the gaps (forming the next chunk into a second register set
     // while one runs gained nothing on an H100).
     for (int k0 = 0; k0 < kpad; k0 += kChunkK) {
+      if (kStream) {
+        // this chunk's slab has landed (this thread's copies, then every
+        // thread's), visible to the wgmmas' proxy; the barrier also says
+        // that every wgmma of the chunk before was waited for, so its
+        // slot may be refilled
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2)
+                     : "memory");
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+        issue();
+      }
       uint32_t a_hi[kChunkSteps][4], a_lo[kChunkSteps][4];
 #pragma unroll
       for (int s = 0; s < kChunkSteps; ++s) {
@@ -437,12 +521,17 @@ sr_predict_tc_kernel(const float* __restrict__ X,
       for (int s = 0; s < kChunkSteps; ++s) {
         // k8 step k0 / 8 + s starts 2 core matrices (256 bytes, 16 in the
         // descriptor's units) further along K
-        const uint64_t step = (uint64_t)((k0 / 4 + 2 * s) * 8);
-        Wgmma<2 * BN>::run(acc, a_hi[s], desc + step);
-        Wgmma<BN>::run(acc_lo, a_lo[s], desc + step);
+        // (a slab starts at K column 0 of its own)
+        const uint64_t step =
+            (uint64_t)(((kStream ? 0 : k0 / 4) + 2 * s) * 8);
+        const uint64_t b = kStream ? ring_desc + (uint64_t)(slot * kSlab / 4)
+                                   : desc;
+        Wgmma<2 * BN>::run(acc, a_hi[s], b + step);
+        Wgmma<BN>::run(acc_lo, a_lo[s], b + step);
       }
       wgmma_commit();
       wgmma_wait<0>();
+      if (kStream && ++slot == kStages) slot = 0;
 #pragma unroll
       for (int i = 0; i < BN; ++i) pin(acc[i]);
 #pragma unroll
@@ -500,25 +589,25 @@ int tile_bands(int kpad, int degree) {
   return 0;
 }
 
-template <int D, int BN>
+template <int D, int BN, bool kStream>
 cudaError_t launch(const float* X, const uint8_t* mask, const float* mean,
                    const float* stdv, const float* W, const float* icpt,
                    const int* pairs, const int* src, uint16_t* Q, int64_t N,
                    int Bx, int By, int kpad, int64_t x_sp, int64_t x_sb,
                    int64_t q_sp, int64_t q_sb, int test_nodata,
                    double nodata, cudaStream_t stream) {
-  const size_t smem = smem_bytes(BN, kpad, D);
+  const size_t smem = kStream ? smem_bytes_streamed(BN, kpad, D)
+                              : smem_bytes(BN, kpad, D);
+  auto kernel = sr_predict_tc_kernel<D, BN, kStream>;
   cudaError_t err = cudaFuncSetAttribute(
-      sr_predict_tc_kernel<D, BN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     device)) != cudaSuccess) return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, sr_predict_tc_kernel<D, BN>, kThreads, smem))
-      != cudaSuccess) {
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess) {
     return err;
   }
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -529,13 +618,13 @@ cudaError_t launch(const float* X, const uint8_t* mask, const float* mean,
   const int64_t cta_tiles = (n_tiles + kWarpgroups - 1) / kWarpgroups;
   if (bx > cta_tiles) bx = cta_tiles;
   const double tol = 1e-8 + 1e-5 * fabs(nodata);
-  sr_predict_tc_kernel<D, BN><<<dim3((unsigned int)bx, tiles_by), kThreads,
-                                 smem, stream>>>(
+  kernel<<<dim3((unsigned int)bx, tiles_by), kThreads, smem, stream>>>(
       X, mask, mean, stdv, W, icpt, pairs, src, Q, N, Bx, By, kpad, x_sp,
       x_sb, q_sp, q_sb, test_nodata, nodata, tol, n_tiles);
   return cudaGetLastError();
 }
 
+// route: 32 or 16 bands per CTA with W resident, 0 for the streamed route
 template <int D>
 cudaError_t launch_d(int bn, const float* X, const uint8_t* mask,
                      const float* mean, const float* stdv, const float* W,
@@ -543,14 +632,47 @@ cudaError_t launch_d(int bn, const float* X, const uint8_t* mask,
                      uint16_t* Q, int64_t N, int Bx, int By, int kpad,
                      int64_t x_sp, int64_t x_sb, int64_t q_sp, int64_t q_sb,
                      int test_nodata, double nodata, cudaStream_t s) {
+  if (bn == 0) {
+    return launch<D, kStreamBN, true>(X, mask, mean, stdv, W, icpt, pairs,
+                                      src, Q, N, Bx, By, kpad, x_sp, x_sb,
+                                      q_sp, q_sb, test_nodata, nodata, s);
+  }
   if (bn == 32) {
-    return launch<D, 32>(X, mask, mean, stdv, W, icpt, pairs, src, Q, N, Bx,
-                         By, kpad, x_sp, x_sb, q_sp, q_sb, test_nodata,
+    return launch<D, 32, false>(X, mask, mean, stdv, W, icpt, pairs, src, Q,
+                                N, Bx, By, kpad, x_sp, x_sb, q_sp, q_sb,
+                                test_nodata, nodata, s);
+  }
+  return launch<D, 16, false>(X, mask, mean, stdv, W, icpt, pairs, src, Q, N,
+                              Bx, By, kpad, x_sp, x_sb, q_sp, q_sb,
+                              test_nodata, nodata, s);
+}
+
+cudaError_t launch_degree(int degree, int bn, const float* X,
+                          const uint8_t* mask, const float* mean,
+                          const float* stdv, const float* W,
+                          const float* icpt, const int* pairs,
+                          const int* src, uint16_t* Q, int64_t N, int Bx,
+                          int By, int kpad, int64_t x_sp, int64_t x_sb,
+                          int64_t q_sp, int64_t q_sb, int test_nodata,
+                          double nodata, cudaStream_t s) {
+  switch (degree) {
+    case 1:
+      return launch_d<1>(bn, X, mask, mean, stdv, W, icpt, pairs, src, Q, N,
+                         Bx, By, kpad, x_sp, x_sb, q_sp, q_sb, test_nodata,
+                         nodata, s);
+    case 2:
+      return launch_d<2>(bn, X, mask, mean, stdv, W, icpt, pairs, src, Q, N,
+                         Bx, By, kpad, x_sp, x_sb, q_sp, q_sb, test_nodata,
+                         nodata, s);
+    case 3:
+      return launch_d<3>(bn, X, mask, mean, stdv, W, icpt, pairs, src, Q, N,
+                         Bx, By, kpad, x_sp, x_sb, q_sp, q_sb, test_nodata,
+                         nodata, s);
+    default:
+      return launch_d<4>(bn, X, mask, mean, stdv, W, icpt, pairs, src, Q, N,
+                         Bx, By, kpad, x_sp, x_sb, q_sp, q_sb, test_nodata,
                          nodata, s);
   }
-  return launch<D, 16>(X, mask, mean, stdv, W, icpt, pairs, src, Q, N, Bx,
-                       By, kpad, x_sp, x_sb, q_sp, q_sb, test_nodata, nodata,
-                       s);
 }
 
 }  // namespace
@@ -570,7 +692,7 @@ extern "C" int sr_predict_tile_bands(int kcols, int degree) {
 // constant one, row b + 1 input band b): the prefix (padded to at least 2
 // with row 0), then the two last factors; src: (2 n_pairs) W row of each
 // K column, -1 for padding. Pair 4 s + t fills K columns 8 s + t and
-// 8 s + t + 4. n_pairs is a multiple of 16.
+// 8 s + t + 4. n_pairs is a multiple of 16. The resident route.
 extern "C" int sr_predict_u16_f32(const float* X, const unsigned char* mask,
                                   const float* mean, const float* stdv,
                                   const float* W, const float* icpt,
@@ -587,23 +709,40 @@ extern "C" int sr_predict_u16_f32(const float* X, const unsigned char* mask,
   if (Bx < 1 || Bx > kMaxBx || bn == 0 || By > 65535 * bn) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (degree) {
-    case 1:
-      return (int)launch_d<1>(bn, X, mask, mean, stdv, W, icpt, pairs, src,
-                              Q, N, Bx, By, kpad, x_sp, x_sb, q_sp, q_sb,
-                              test_nodata, nodata, s);
-    case 2:
-      return (int)launch_d<2>(bn, X, mask, mean, stdv, W, icpt, pairs, src,
-                              Q, N, Bx, By, kpad, x_sp, x_sb, q_sp, q_sb,
-                              test_nodata, nodata, s);
-    case 3:
-      return (int)launch_d<3>(bn, X, mask, mean, stdv, W, icpt, pairs, src,
-                              Q, N, Bx, By, kpad, x_sp, x_sb, q_sp, q_sb,
-                              test_nodata, nodata, s);
-    default:
-      return (int)launch_d<4>(bn, X, mask, mean, stdv, W, icpt, pairs, src,
-                              Q, N, Bx, By, kpad, x_sp, x_sb, q_sp, q_sb,
-                              test_nodata, nodata, s);
+  return (int)launch_degree(degree, bn, X, mask, mean, stdv, W, icpt, pairs,
+                            src, Q, N, Bx, By, kpad, x_sp, x_sb, q_sp, q_sb,
+                            test_nodata, nodata, (cudaStream_t)stream);
+}
+
+// Whether the streamed route takes kcols K columns at `degree`: its ring
+// and the resident pair entries fit in shared memory.
+extern "C" int sr_predict_streamed_fits(int kcols, int degree) {
+  return kcols >= kChunkK && kcols % kChunkK == 0 && degree >= 1
+         && degree <= kMaxDegree
+         && smem_bytes_streamed(kStreamBN, kcols, degree)
+                <= (size_t)kMaxSmem;
+}
+
+// The streamed route. slabs: W in the K order of `pairs`, split into TF32
+// hi and lo and laid out by the host (kernels/sr_predict.py:sr_w_slabs):
+// [ceil(By / 32)][2 n_pairs / 32] slabs of 2048 floats, slab (jt, c) =
+// K columns [32 c, 32 c + 32) of rows n < 32 (W_hi of band 32 jt + n) and
+// 32 + n (W_lo), element (n, k) at (n / 8) * 256 + (k / 4) * 32 +
+// (n % 8) * 4 + k % 4; zeros for padding columns and bands past By.
+extern "C" int sr_predict_u16_streamed_f32(
+    const float* X, const unsigned char* mask, const float* mean,
+    const float* stdv, const float* slabs, const float* icpt,
+    const int* pairs, unsigned short* Q, long long N, int Bx, int By,
+    int n_pairs, int degree, long long x_sp, long long x_sb, long long q_sp,
+    long long q_sb, int test_nodata, double nodata, void* stream) {
+  if (N <= 0 || By <= 0) return (int)cudaSuccess;
+  const int kpad = 2 * n_pairs;
+  if (Bx < 1 || Bx > kMaxBx || !sr_predict_streamed_fits(kpad, degree)
+      || By > 65535 * kStreamBN) {
+    return (int)cudaErrorInvalidValue;
   }
+  return (int)launch_degree(degree, 0, X, mask, mean, stdv, slabs, icpt,
+                            pairs, nullptr, Q, N, Bx, By, kpad, x_sp, x_sb,
+                            q_sp, q_sb, test_nodata, nodata,
+                            (cudaStream_t)stream);
 }

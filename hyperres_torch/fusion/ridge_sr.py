@@ -11,8 +11,12 @@ bias) -> Ridge(alpha)`` trained in logit space, with sigmoid inference:
 - ``forward`` / ``predict`` / ``predict_cube`` / ``evaluate``: plain
   PyTorch.
 - ``predict_cube_u16`` and :func:`sr_predict_u16`: the u16 product and
-  serving paths, through the hand-written kernel of
-  :mod:`hyperres_torch.kernels.sr_predict` on the card.
+  serving paths, with the reference's ``engine=`` argument:
+  ``"pallas"`` is the hand-written kernel of
+  :mod:`hyperres_torch.kernels.sr_predict` (Bx <= 16, degree <= 4),
+  ``"xla"`` the batched plain-tensor program
+  (:func:`predict_quant_batches`, any model), ``"auto"`` the kernel
+  where it takes the model and ``"xla"`` otherwise.
 
 ``x_mean``, ``x_std``, ``W`` (F, By) and ``intercept`` are buffers (None
 until fitted or loaded); the device is explicit. ``save_params`` /
@@ -35,11 +39,43 @@ from ..kernels.host import poly_factor_indices
 from ..kernels.lstsq import (
     logit, make_poly_expander, r2_rmse_per_band, ridge_solve, sigmoid,
 )
+from ..kernels.sr_predict import MAX_BANDS_IN, MAX_DEGREE, kernel_takes
 from ..kernels.sr_predict import sr_predict_u16 as _sr_predict_kernel
 from ..kernels.sr_predict import valid_pixels
 
 DeviceLike = Union[str, torch.device, None]
 ArrayLike = Union[np.ndarray, torch.Tensor]
+ENGINES = ("auto", "pallas", "xla")
+
+
+def predict_quant_batches(model: "RidgeSpectralSR", X: torch.Tensor,
+                          valid: torch.Tensor, batch: int,
+                          layout: str = "rowmajor") -> torch.Tensor:
+    """The ``"xla"`` engine: the reference's ``_predict_quant_batches``
+    (``hyperres/fusion/ridge_sr.py:184-214``) as plain tensor ops. X
+    (N, Bx) float32 without NaNs, ``valid`` (N,) bool; ``batch`` pixels
+    at a time: standardise -> monomial expansion -> f32 matmul with W ->
+    sigmoid (its logit clipped to +-50) -> ``clip(rint(y * 1e4), 0,
+    65534)`` as uint16, 65535 where not valid. Returns (N, By), or
+    (By, N) with ``layout="cmajor"``. Any Bx and degree. The (batch, F)
+    feature matrix is the largest temporary; the last batch is short
+    where the reference pads (eager ops need no fixed shape)."""
+    n, by = X.shape[0], model.n_outputs
+    out = torch.empty((by, n) if layout == "cmajor" else (n, by),
+                      dtype=torch.uint16, device=X.device)
+    for s in range(0, n, batch):
+        x = X[s:s + batch]
+        z = model.expand((x - model.x_mean) / model.x_std) @ model.W \
+            + model.intercept
+        q = torch.clamp(torch.round(sigmoid(z) * 10000.0), 0.0, 65534.0)
+        # int32 until the end: CUDA takes few operators on uint16
+        q = torch.where(valid[s:s + batch, None], q.to(torch.int32),
+                        65535).to(torch.uint16)
+        if layout == "cmajor":
+            out[:, s:s + batch] = q.T
+        else:
+            out[s:s + batch] = q
+    return out
 
 
 class RidgeSpectralSR(nn.Module):
@@ -62,6 +98,8 @@ class RidgeSpectralSR(nn.Module):
                              persistent=False)
         for name in ("x_mean", "x_std", "W", "intercept"):
             self.register_buffer(name, None)
+        #: the engine the last u16 call took ("pallas" or "xla")
+        self.last_engine: Optional[str] = None
 
     @property
     def device(self) -> torch.device:
@@ -183,16 +221,63 @@ class RidgeSpectralSR(nn.Module):
             out[sl] = self(flat[sl])
         return out.T.reshape(self.n_outputs, h, w)
 
+    def resolve_engine(self, engine: str = "auto") -> str:
+        """The engine a u16 call takes, from the model's shape alone and
+        before any launch: ``"auto"`` is ``"pallas"`` where the kernel
+        takes the model (Bx <= 16 and degree <= 4) and ``"xla"``
+        otherwise; ``"pallas"`` past those limits raises ``ValueError``."""
+        if engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}, got "
+                             f"{engine!r}")
+        takes = kernel_takes(self.n_inputs, self.cfg.degree)
+        if engine == "auto":
+            return "pallas" if takes else "xla"
+        if engine == "pallas" and not takes:
+            raise ValueError(
+                f"engine='pallas': the kernel takes Bx <= {MAX_BANDS_IN} "
+                f"and degree <= {MAX_DEGREE}, got {self.n_inputs} and "
+                f"{self.cfg.degree}; engine='xla' takes any model")
+        return engine
+
+    def _predict_u16(self, X2: torch.Tensor, layout: str,
+                     valid: Optional[torch.Tensor], nodata: Optional[float],
+                     engine: str) -> torch.Tensor:
+        """The u16 codes of a 2-D X ((Bx, N) with ``"cmajor"``, (N, Bx)
+        with ``"rowmajor"``) through the resolved engine, which
+        ``last_engine`` then names."""
+        engine = self.resolve_engine(engine)
+        self.last_engine = engine
+        if engine == "pallas":
+            return _sr_predict_kernel(X2, self.x_mean, self.x_std, self.W,
+                                      self.intercept, self.factors, layout,
+                                      valid=valid, nodata=nodata,
+                                      batch_pixels=self.cfg.batch_pixels)
+        Xp = X2.T if layout == "cmajor" else X2
+        if valid is None:
+            valid = valid_pixels(Xp, nodata)
+        return predict_quant_batches(self, torch.nan_to_num(Xp), valid,
+                                     self.cfg.batch_pixels, layout)
+
     def predict_cube_u16(self, X_bhw: ArrayLike,
                          nodata: Optional[float] = None,
-                         layout: str = "cmajor") -> torch.Tensor:
+                         layout: str = "cmajor",
+                         engine: str = "auto") -> torch.Tensor:
         """The u16 x10000 product (65535 = nodata): (Bx, H, W) -> (By,
         H, W) with ``layout="cmajor"`` (the reference's layout), or
         (H, W, Bx) -> (H, W, By) with ``"rowmajor"``. A pixel is valid
         when all its bands are finite and none is isclose to ``nodata``.
-        One launch of the fused kernel on the card, which reads X and
-        writes Q once; on the CPU the plain version in batches of
-        ``batch_pixels``."""
+
+        ``engine`` is the reference's argument
+        (``hyperres/fusion/ridge_sr.py:216``). ``"pallas"``: one launch
+        of the fused kernel on the card, which reads X and writes Q
+        once (on a CPU tensor its plain version in batches of
+        ``batch_pixels``); it raises for a model past the kernel's
+        limits, and a kernel that fails to build or launch raises too
+        (the reference's warn-and-fall-back is not copied). ``"xla"``:
+        :func:`predict_quant_batches`, any model. ``"auto"``:
+        :meth:`resolve_engine`'s rule by model shape. The engine taken
+        is left in ``last_engine``. The engines agree on the 65535 mask
+        and to one u16 step."""
         self._require_fitted()
         X = self._as_f32(X_bhw)
         if layout == "cmajor":
@@ -204,11 +289,8 @@ class RidgeSpectralSR(nn.Module):
         else:
             raise ValueError(f"layout must be 'cmajor' or 'rowmajor', got "
                              f"{layout!r}")
-        q = _sr_predict_kernel(X2, self.x_mean, self.x_std, self.W,
-                               self.intercept, self.factors, layout,
-                               nodata=nodata,
-                               batch_pixels=self.cfg.batch_pixels)
-        return q.reshape(out_shape)
+        return self._predict_u16(X2, layout, None, nodata,
+                                 engine).reshape(out_shape)
 
     # ---- evaluation ----
 
@@ -219,18 +301,17 @@ class RidgeSpectralSR(nn.Module):
         return r2_rmse_per_band(self._as_f32(Y_true), self.predict(X))
 
 
-def sr_predict_u16(X: ArrayLike, valid: ArrayLike,
-                   model: RidgeSpectralSR) -> torch.Tensor:
+def sr_predict_u16(X: ArrayLike, valid: ArrayLike, model: RidgeSpectralSR,
+                   engine: str = "auto") -> torch.Tensor:
     """Row-major serving form: X (N, Bx), valid (N,) bool -> (N, By)
-    uint16 (65535 where not valid), through the same kernel. The
-    single-device counterpart of the per-shard body of the reference's
+    uint16 (65535 where not valid), through the same engines as
+    :meth:`RidgeSpectralSR.predict_cube_u16`. The single-device
+    counterpart of the per-shard body of the reference's
     ``sharded_sr_predict_u16`` (``hyperres/parallel/ops.py:414-436``)."""
     model._require_fitted()
     Xt = model._as_f32(X)
     v = torch.as_tensor(valid, dtype=torch.bool, device=model.device)
-    return _sr_predict_kernel(Xt, model.x_mean, model.x_std, model.W,
-                              model.intercept, model.factors, "rowmajor",
-                              valid=v, batch_pixels=model.cfg.batch_pixels)
+    return model._predict_u16(Xt, "rowmajor", v, None, engine)
 
 
 def save_params(path, model: RidgeSpectralSR) -> None:

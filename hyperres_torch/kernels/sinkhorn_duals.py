@@ -20,7 +20,13 @@ On a CUDA tensor the wrapper launches the hand-written kernels (or
 raises); the host reads ``err`` once per group. Two routes, chosen by
 :func:`sinkhorn_route` from the shape: the one-pass kernel (one read of
 ``Mr`` per sweep, launch counter ``sinkhorn_duals``) and, for rows too
-long for it, the two-read kernels (counter ``sinkhorn_duals_long_rows``).
+long for it, the sliced kernels (counter ``sinkhorn_duals_long_rows``):
+each row is cut into column slices whose (max, sum of exp) pairs are
+merged in a fixed order (:func:`merge_slices`), so the grid fills the
+card however few the rows (:func:`long_rows_plan`). The earlier
+two-read kernels stay in the source as the route ``"two_read"`` (counter
+``sinkhorn_duals_two_read``), which the rule never picks: they are timed
+beside the others.
 On a CPU tensor it runs :func:`sinkhorn_duals_reference`, the plain
 PyTorch version, with the same update order and the same stopping rule.
 """
@@ -39,7 +45,9 @@ from ..device import count_launch
 KERNEL_NAME = "sinkhorn_duals"
 #: launch counter of the long-rows route
 LONG_ROWS_NAME = "sinkhorn_duals_long_rows"
-ONE_PASS, LONG_ROWS = "one_pass", "long_rows"
+#: launch counter of the two-read kernels (timed beside the routes)
+TWO_READ_NAME = "sinkhorn_duals_two_read"
+ONE_PASS, LONG_ROWS, TWO_READ = "one_pass", "long_rows", "two_read"
 #: the one-pass kernel (csrc/sinkhorn_duals.cu): 512 threads, 12 register
 #: columns each, at most 2 rows per group, a ring of 4 groups in shared
 #: memory
@@ -52,9 +60,20 @@ _ONE_PASS_FIXED_BYTES = 2 * 2 * 16 * 4 + _ONE_PASS_STAGES * 7 * 4
 #: cost matrix, in bytes after padding both sides to 128, that
 #: ``engine="pallas"`` hands to the kernel
 PALLAS_SINKHORN_VMEM_BUDGET = 5120 * 5120 * 4
-#: column-kernel blocks per SM the row chunks are sized for
+#: column-kernel blocks per SM the two-read route's row chunks are sized
+#: for
 _COL_BLOCKS_PER_SM = 4
 _COL_THREADS = 256
+#: the long-rows route (csrc/sinkhorn_duals.cu: kSliceCols, kSliceMaxRows):
+#: a slice-kernel block takes 4096 columns of at most 64 rows; blocks per
+#: SM the slice grid (3: one wave of
+#: its 4 resident blocks) and the column grid (4, of 128 columns each) are
+#: sized for
+_SLICE_COLS = 4096
+_SLICE_MAX_ROWS = 64
+_SLICE_BLOCKS_PER_SM = 3
+_SLICED_COL_BLOCKS_PER_SM = 4
+_SLICED_COL_COLS = 128
 
 
 def _check(log_a: torch.Tensor, log_b: torch.Tensor, Mr: torch.Tensor):
@@ -121,6 +140,48 @@ def sinkhorn_duals_reference(log_a: torch.Tensor, log_b: torch.Tensor,
     return (f, g, err, sweeps) if return_sweeps else (f, g, err)
 
 
+def merge_slices(pmax: torch.Tensor, psum: torch.Tensor):
+    """The long-rows route's merge of per-slice pairs (``pmax[..., c]`` =
+    the max of a row's slice c, ``psum[..., c]`` = the sum of exp(z - that
+    max) over it) into the row's (max, sum of exp(z - max)), slices in
+    order (the kernels merge in a fixed order of their own: lanes, then
+    a butterfly); ``max + log(sum)`` is the row's logsumexp."""
+    mx = pmax.amax(dim=-1)
+    total = torch.zeros_like(mx)
+    for c in range(pmax.shape[-1]):
+        total = total + psum[..., c] * torch.exp(pmax[..., c] - mx)
+    return mx, total
+
+
+class LongRowsPlan(NamedTuple):
+    """The long-rows route's grids: ``n_slices`` column slices by
+    ceil(n / ``rows_per_block``) blocks for the slice kernel; ``chunks``
+    row chunks for the column kernel (1: it updates g itself, two
+    launches per sweep; more: the g kernel follows, three)."""
+
+    n_slices: int
+    rows_per_block: int
+    chunks: int
+
+
+def long_rows_plan(n: int, m: int, sms: int) -> LongRowsPlan:
+    """Cut an (n, m) Mr for the long-rows route on a card with ``sms``
+    SMs. Slices of 4096 columns; rows per slice-kernel block so that the
+    grid holds ~3 blocks per SM, inside one wave (at most 64 rows a
+    block, no block empty). The column kernel's blocks take 128 columns;
+    its rows are cut into chunks (no more than n, or 65535) only where
+    the columns alone give fewer than 4 blocks per SM."""
+    n_slices = -(-m // _SLICE_COLS)
+    groups = max(-(-n // _SLICE_MAX_ROWS),
+                 min(n, -(-_SLICE_BLOCKS_PER_SM * sms // n_slices)))
+    rows_per_block = -(-n // groups)
+    col_blocks = -(-m // _SLICED_COL_COLS)
+    chunks = max(1, min(n, 65535, -(-_SLICED_COL_BLOCKS_PER_SM * sms
+                                    // col_blocks)))
+    rows = -(-n // chunks)
+    return LongRowsPlan(n_slices, rows_per_block, -(-n // rows))
+
+
 class Route(NamedTuple):
     """Which kernels run a sweep, and how the one-pass route cuts the
     rows: ``blocks`` blocks of ``rows_per_block`` rows, ``group_rows``
@@ -143,7 +204,8 @@ def sinkhorn_route(n: int, m: int, sms: int, smem_per_block: int) -> Route:
     an H100's 232,448 bytes, so the 6144 limit binds there). Its
     ``min(n, sms)`` blocks take ceil(n / blocks) rows each (none empty)
     and hold ``min(2, fit)`` rows per group. Otherwise the long-rows
-    route (two reads of Mr per sweep): n <= 128 admits m up to ~200k
+    route (column slices, :func:`long_rows_plan`; two reads of Mr per
+    sweep, the second largely from L2): n <= 128 admits m up to ~200k
     under ``PALLAS_SINKHORN_VMEM_BUDGET``."""
     fit = ((smem_per_block - _ONE_PASS_FIXED_BYTES)
            // (_ONE_PASS_STAGES * 4 * m))
@@ -155,8 +217,8 @@ def sinkhorn_route(n: int, m: int, sms: int, smem_per_block: int) -> Route:
 
 
 def _chunks(n: int, m: int, device: torch.device) -> int:
-    """Row chunks of the column kernel: enough blocks to fill the card,
-    no empty chunk."""
+    """Row chunks of the two-read route's column kernel: enough blocks
+    to fill the card, no empty chunk."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     col_blocks = -(-m // _COL_THREADS)
     chunks = max(1, min(n, 65535,
@@ -175,8 +237,8 @@ def sinkhorn_duals(log_a: torch.Tensor, log_b: torch.Tensor,
     CPU tensors through :func:`sinkhorn_duals_reference`. Returns ``(f,
     g, err)``, and the number of sweeps if ``return_sweeps``. The route's
     launch counter counts one per group of ``check_every`` sweeps, where
-    the group's kernels (two per sweep on the one-pass route, three on
-    the long-rows route, and the err sum) are launched."""
+    the group's kernels (two per sweep on the one-pass route, two or
+    three on the long-rows route, and the err sum) are launched."""
     n, m = _check(log_a, log_b, Mr)
     if Mr.device.type == "cpu":
         return sinkhorn_duals_reference(log_a, log_b, Mr, num_itermax,
@@ -210,6 +272,24 @@ def sinkhorn_duals(log_a: torch.Tensor, log_b: torch.Tensor,
         ptrs = (Mr, log_a, log_b, f, g, err_row, partial)
         shape = (n, m, route.blocks, route.rows_per_block, route.group_rows)
         name = KERNEL_NAME
+    elif route.name == LONG_ROWS:
+        fn = lib.sinkhorn_duals_sliced_sweeps
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        plan = long_rows_plan(n, m, sms.value)
+        pmax, psum = (torch.empty((n, plan.n_slices), dtype=torch.float32,
+                                  device=dev) for _ in range(2))
+        rmax, u = (torch.empty(n, dtype=torch.float32, device=dev)
+                   for _ in range(2))
+        # one per group of rows of the slice kernel; it leaves them zero
+        counters = torch.zeros(-(-n // plan.rows_per_block),
+                               dtype=torch.int32, device=dev)
+        partial = torch.empty((plan.chunks if plan.chunks > 1 else 0, m),
+                              dtype=torch.float32, device=dev)
+        ptrs = (Mr, log_a, log_b, f, g, pmax, psum, rmax, u, err_row,
+                counters, partial)
+        shape = (n, m, *plan)
+        name = LONG_ROWS_NAME
     else:
         fn = lib.sinkhorn_duals_sweeps
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2
@@ -220,7 +300,7 @@ def sinkhorn_duals(log_a: torch.Tensor, log_b: torch.Tensor,
         partial = torch.empty((chunks, m), dtype=torch.float32, device=dev)
         ptrs = (Mr, log_a, log_b, f, g, rmax, u, err_row, partial)
         shape = (n, m, chunks)
-        name = LONG_ROWS_NAME
+        name = TWO_READ_NAME
     fn.restype = ctypes.c_int
 
     def run_group(k):

@@ -32,12 +32,21 @@ terms (``A_hi B_hi + A_hi B_lo + A_lo B_hi`` with ``hi`` / ``lo`` the
 round-to-nearest TF32 split), which keeps f32-level accuracy. Its K axis
 is the monomials in pairs that share every factor but the last
 (:func:`sr_pair_table`), so a thread forms two monomials from one prefix
-product; W's rows follow that order, with zero rows for padding. It
-keeps W's hi and lo for its band tile in shared memory, which limits the
-number of K columns: :func:`sr_tile_bands` gives the tile (32 bands, or
+product; W's rows follow that order, with zero rows for padding.
+
+Two routes, chosen from the model's shape by :func:`sr_route` before any
+launch. Resident (launch counter ``sr_predict_u16``): the kernel keeps
+W's hi and lo for its band tile in shared memory, which limits the
+number of K columns; :func:`sr_tile_bands` gives the tile (32 bands, or
 16 for more columns) and :func:`sr_k_columns` the columns of a factor
 table (Bx = 10: F = 285 at degree 3 takes 320 columns, F = 1000 at
-degree 4 takes 1184; Bx = 12 at degree 4, F = 1819, is over the limit).
+degree 4 takes 1184). Streamed (counter ``sr_predict_u16_streamed``):
+for more columns (Bx = 12 at degree 4, F = 1819, takes 2080) W is split
+and laid out once per model in global memory (:func:`sr_w_slabs`) and
+the kernel streams it through a ring of K-chunk slabs in shared memory.
+Both walk K in the same order with the same arithmetic, so a model
+gives the same codes on either. Together they take every model with
+Bx <= 16 and degree <= 4 (:func:`kernel_takes`).
 """
 
 from __future__ import annotations
@@ -53,8 +62,10 @@ from ..device import count_launch
 from .lstsq import poly_expand, sigmoid
 from .stats import quantize_reflectance_u16
 
-#: launch-counter name
+#: launch-counter names of the two routes
 KERNEL_NAME = "sr_predict_u16"
+STREAMED_NAME = "sr_predict_u16_streamed"
+RESIDENT, STREAMED = "resident", "streamed"
 LAYOUTS = ("cmajor", "rowmajor")
 #: the kernel's limits (csrc/sr_predict.cu: kMaxBx, kMaxDegree)
 MAX_BANDS_IN = 16
@@ -66,15 +77,53 @@ MAX_DEGREE = 4
 #: and staged u16 tile
 _MAX_SMEM = 232448
 _WARPGROUPS = 2
+#: the streamed route (csrc/sr_predict.cu: kChunkK, kStages, kStreamBN):
+#: slabs of 32 K columns x [W_hi | W_lo] of 32 bands, a ring of 4
+_CHUNK_K = 32
+_STAGES = 4
+_STREAM_BANDS = 32
+
+
+def _wg_bytes(bands: int) -> int:
+    tile = 64
+    return ((1 + MAX_BANDS_IN) * (tile + 8) * 4 + 2 * tile
+            + -(-bands * (tile + 2) * 2 // 16) * 16)
 
 
 def _smem_bytes(bands: int, k_cols: int, degree: int) -> int:
-    tile = 64
-    wg = ((1 + MAX_BANDS_IN) * (tile + 8) * 4 + 2 * tile
-          + -(-bands * (tile + 2) * 2 // 16) * 16)
     pair = 8 if degree <= 3 else 16
     return (2 * bands * k_cols * 4 + k_cols // 2 * pair
-            + 2 * MAX_BANDS_IN * 4 + _WARPGROUPS * wg)
+            + 2 * MAX_BANDS_IN * 4 + _WARPGROUPS * _wg_bytes(bands))
+
+
+def _smem_bytes_streamed(k_cols: int, degree: int) -> int:
+    """The streamed route's shared memory: the ring of slabs, the pair
+    entries (resident), mean and std, the warpgroups' scratch."""
+    pair = 8 if degree <= 3 else 16
+    return (_STAGES * 2 * _STREAM_BANDS * _CHUNK_K * 4 + k_cols // 2 * pair
+            + 2 * MAX_BANDS_IN * 4 + _WARPGROUPS * _wg_bytes(_STREAM_BANDS))
+
+
+def sr_route(k_cols: int, degree: int) -> Tuple[Optional[str], int]:
+    """The kernel's route for ``k_cols`` K columns (a multiple of 32) at
+    ``degree``, and its output bands per CTA: ``("resident", 32 or 16)``
+    where W's hi and lo fit in shared memory (:func:`sr_tile_bands`),
+    else ``("streamed", 32)`` where the ring and the pair entries fit
+    (up to ~21,000 columns; 16 bands at degree 4 take ~5,600), else
+    ``(None, 0)``."""
+    bands = sr_tile_bands(k_cols, degree)
+    if bands:
+        return RESIDENT, bands
+    if _smem_bytes_streamed(k_cols, degree) <= _MAX_SMEM:
+        return STREAMED, _STREAM_BANDS
+    return None, 0
+
+
+def kernel_takes(n_inputs: int, degree: int) -> bool:
+    """Whether the kernel takes a model of ``n_inputs`` bands at
+    ``degree``: the limits of its input tile and its pair entries. Every
+    such model has a route (F <= 4845 monomials)."""
+    return 1 <= n_inputs <= MAX_BANDS_IN and 1 <= degree <= MAX_DEGREE
 
 
 def sr_tile_bands(k_cols: int, degree: int) -> int:
@@ -154,6 +203,61 @@ def _device_pairs(factors: torch.Tensor):
                torch.from_numpy(src).to(factors.device))
         _PAIRS[key] = hit
     return hit[2], hit[3]
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as the kernel rounds it (``cvt.rna.tf32.f32``:
+    10 mantissa bits, to nearest, ties away from zero): half of the 13
+    dropped bits added to the magnitude through the int32 view, then the
+    13 cleared."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def sr_w_slabs(W: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """W (F, By) as the streamed route reads it: its rows in the kernel's
+    K order (``src`` of :func:`sr_pair_table`, zero rows for padding),
+    split into TF32 ``hi = rna(w)`` and ``lo = rna(w - hi)`` (the
+    resident route's split, bit for bit) and laid out as
+    ``(ceil(By / 32), K / 32, 2048)`` slabs: slab (jt, c) holds K columns
+    [32 c, 32 c + 32) of B rows n < 32 (W_hi of band 32 jt + n, zero past
+    By) and 32 + n (W_lo), element (n, k) at ``(n // 8) * 256 + (k // 4)
+    * 32 + (n % 8) * 4 + k % 4``: the no-swizzle core-matrix layout the
+    ``wgmma``s read, so a slab goes to shared memory as it is."""
+    k_cols, by = src.shape[0], W.shape[1]
+    bn = _STREAM_BANDS
+    jt = -(-by // bn)
+    wk = torch.zeros((k_cols, jt * bn), dtype=torch.float32, device=W.device)
+    live = src >= 0
+    wk[live, :by] = W[src[live].to(torch.int64)]
+    hi = tf32_rna(wk)
+    lo = tf32_rna(wk - hi)
+    # (K, jt, 2 bn): B rows of a band tile, hi then lo
+    b = torch.cat([hi.view(k_cols, jt, bn), lo.view(k_cols, jt, bn)], dim=2)
+    # K = (chunk, k // 4, k % 4), rows = (n // 8, n % 8)
+    b = b.view(k_cols // _CHUNK_K, _CHUNK_K // 4, 4, jt, 2 * bn // 8, 8)
+    b = b.permute(3, 0, 4, 1, 5, 2).contiguous()
+    return b.view(jt, k_cols // _CHUNK_K, 2 * bn * _CHUNK_K)
+
+
+#: per W tensor (by id, with a weak reference that drops the entry when
+#: the tensor goes): its version, the factor table's id and version, and
+#: its slabs
+_SLABS: Dict[int, tuple] = {}
+
+
+def _device_slabs(W: torch.Tensor, factors: torch.Tensor,
+                  src: torch.Tensor) -> torch.Tensor:
+    """:func:`sr_w_slabs` of a model's W, cached per tensor and version
+    (the split and layout run once per model)."""
+    key = id(W)
+    tag = (W._version, id(factors), factors._version)
+    hit = _SLABS.get(key)
+    if hit is None or hit[0]() is not W or hit[1] != tag:
+        hit = (weakref.ref(W, lambda _, k=key: _SLABS.pop(k, None)), tag,
+               sr_w_slabs(W, src))
+        _SLABS[key] = hit
+    return hit[2]
 
 
 def _check(X: torch.Tensor, x_mean: torch.Tensor, x_std: torch.Tensor,
@@ -251,25 +355,33 @@ def sr_predict_u16(X: torch.Tensor, x_mean: torch.Tensor,
     if X.device.type != "cuda":
         raise ValueError(f"no SR-predict kernel for device {X.device}")
     f, degree = factors.shape
-    if bx > MAX_BANDS_IN or degree > MAX_DEGREE:
+    if not kernel_takes(bx, degree):
         raise ValueError(f"the kernel takes Bx <= {MAX_BANDS_IN} and "
                          f"degree <= {MAX_DEGREE}, got {bx} and {degree}")
     pairs, src = _device_pairs(factors)
     k_cols = 2 * pairs.shape[0]
-    if not sr_tile_bands(k_cols, degree):
-        raise ValueError(f"the kernel's W tile does not fit shared memory: "
-                         f"F = {f} monomials take {k_cols} K columns at "
-                         f"degree {degree}")
+    route, _ = sr_route(k_cols, degree)
+    if route is None:
+        raise ValueError(f"the kernel's pair entries do not fit shared "
+                         f"memory: F = {f} monomials take {k_cols} K "
+                         f"columns at degree {degree}")
     from ._build import load_library
 
     lib = load_library("sr_predict")
-    fn = lib.sr_predict_u16_f32
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+    mean, std = x_mean.contiguous(), x_std.contiguous()
+    ic = intercept.contiguous()
+    if route == RESIDENT:
+        fn, name = lib.sr_predict_u16_f32, KERNEL_NAME
+        model = (W.contiguous().data_ptr(), ic.data_ptr(), pairs.data_ptr(),
+                 src.data_ptr())
+    else:
+        fn, name = lib.sr_predict_u16_streamed_f32, STREAMED_NAME
+        slabs = _device_slabs(W, factors, src)
+        model = (slabs.data_ptr(), ic.data_ptr(), pairs.data_ptr())
+    fn.argtypes = ([ctypes.c_void_p] * (5 + len(model)) + [ctypes.c_longlong]
                    + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
                    + [ctypes.c_int, ctypes.c_double, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    mean, std = x_mean.contiguous(), x_std.contiguous()
-    Wc, ic = W.contiguous(), intercept.contiguous()
     mask = None if valid is None else valid.contiguous()
     if layout == "cmajor":
         out = torch.empty((by, n), dtype=torch.uint16, device=X.device)
@@ -282,13 +394,12 @@ def sr_predict_u16(X: torch.Tensor, x_mean: torch.Tensor,
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         rc = fn(X.data_ptr(), None if mask is None else mask.data_ptr(),
-                mean.data_ptr(), std.data_ptr(), Wc.data_ptr(),
-                ic.data_ptr(), pairs.data_ptr(), src.data_ptr(),
-                out.data_ptr(), n, bx, by, pairs.shape[0], degree, x_sp,
-                x_sb, q_sp, q_sb, int(nodata is not None),
+                mean.data_ptr(), std.data_ptr(), *model, out.data_ptr(), n,
+                bx, by, pairs.shape[0], degree, x_sp, x_sb, q_sp, q_sb,
+                int(nodata is not None),
                 0.0 if nodata is None else float(nodata), stream)
     if rc != 0:
-        raise RuntimeError(f"sr_predict_u16 kernel launch failed: CUDA "
-                           f"error {rc}")
-    count_launch(KERNEL_NAME)
+        raise RuntimeError(f"sr_predict_u16 kernel launch ({route} route) "
+                           f"failed: CUDA error {rc}")
+    count_launch(name)
     return out

@@ -391,6 +391,80 @@ def test_apply_affine_copy(rng):
                                       jot.apply_affine(src, A, t, m))
 
 
+def test_long_rows_reference_matches_pallas(rng):
+    """The plain version == pallas_sinkhorn_duals in interpret mode on a
+    long-rows shape (8 x 6400: m past the one-pass kernel's 6144
+    columns), 30 sweeps at stop_thr=0: the plans P = exp(Mr + f + g) to
+    atol 1e-7 (the bound of the 150 x 170 test; P's entries are <=
+    1 / 6400), the same sweep count, a finite err."""
+    n, m = 8, 6400
+    assert tduals.sinkhorn_route(n, m, *H100).name == tduals.LONG_ROWS
+    Mr = _cost(rng, n, m)
+    a = np.full(n, 1.0 / n, np.float32)
+    b = np.full(m, 1.0 / m, np.float32)
+    f, g, err = pallas_sinkhorn_duals(jnp.log(jnp.asarray(a)),
+                                      jnp.log(jnp.asarray(b)),
+                                      jnp.asarray(Mr), num_itermax=30,
+                                      stop_thr=0.0)
+    tf, tg, terr, sweeps = tduals.sinkhorn_duals(
+        torch.log(T(a)), torch.log(T(b)), T(Mr), num_itermax=30,
+        stop_thr=0.0, return_sweeps=True)
+    assert sweeps == 30
+    assert np.isfinite(float(terr)) and np.isfinite(float(err))
+    np.testing.assert_allclose(_plan(Mr, tf.numpy(), tg.numpy()),
+                               _plan(Mr, f, g), rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("n,m,width", [(5, 9000, 4096), (3, 6145, 512),
+                                       (16, 20000, 4096)])
+def test_slice_merge_matches_logsumexp(n, m, width, rng):
+    """The long-rows route's arithmetic on the CPU: each row of z = Mr + g
+    cut into slices of ``width`` columns (the last one ragged), per slice
+    (max, sum of exp(z - max)), merged by merge_slices: max + log(sum) ==
+    torch.logsumexp of the whole row to 1e-6 relative, the max exactly."""
+    z = T(_cost(rng, n, m)) + T(rng.normal(0, 3, m).astype(np.float32))
+    n_slices = -(-m // width)
+    pmax = torch.empty((n, n_slices))
+    psum = torch.empty((n, n_slices))
+    for c in range(n_slices):
+        part = z[:, c * width:(c + 1) * width]
+        pmax[:, c] = part.amax(dim=1)
+        psum[:, c] = torch.exp(part - pmax[:, c:c + 1]).sum(dim=1)
+    mx, total = tduals.merge_slices(pmax, psum)
+    assert torch.equal(mx, z.amax(dim=1))
+    torch.testing.assert_close(mx + torch.log(total),
+                               torch.logsumexp(z, dim=1), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("n,m,want", [
+    (128, 100_000, (25, 8, 1)), (1024, 20_000, (5, 13, 4)),
+    (8, 6400, (2, 1, 8)), (1, 200_000, (49, 1, 1)),
+    (4266, 6145, (2, 22, 11))])
+def test_long_rows_plan(n, m, want):
+    """The long-rows route's grids on an H100 (132 SMs): slices of 4096
+    columns; slice-kernel blocks of at most 64 rows, ~3 blocks per SM and
+    none empty; the column kernel's rows in one chunk where ceil(m / 128)
+    column blocks give 4 per SM, else in equal chunks, none empty."""
+    plan = tduals.long_rows_plan(n, m, 132)
+    assert tuple(plan) == want
+    assert plan.n_slices == -(-m // 4096)
+    assert 1 <= plan.rows_per_block <= 64
+    groups = -(-n // plan.rows_per_block)
+    assert (groups - 1) * plan.rows_per_block < n
+    rows = -(-n // plan.chunks)
+    assert (plan.chunks - 1) * rows < n <= plan.chunks * rows
+
+
+def test_two_read_route_is_never_chosen():
+    """The earlier two-read kernels stay as a route of their own name,
+    which the rule does not return: every shape is one pass or long
+    rows."""
+    names = {tduals.sinkhorn_route(n, m, *H100).name
+             for n in (1, 128, 5000) for m in (1, 6144, 6145, 200_000)}
+    assert names == {tduals.ONE_PASS, tduals.LONG_ROWS}
+    assert tduals.TWO_READ not in names
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -448,3 +522,35 @@ def test_sinkhorn_long_rows_kernel_matches_plain_on_gpu(cuda_device, rng,
     torch.testing.assert_close(g, rg, rtol=0, atol=1e-4)
     assert (abs(float(err) - float(rerr))
             <= 0.1 * max(float(err), float(rerr)) + 1e-8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(128, 100_000), (1024, 20_000), (8, 6400)])
+def test_sliced_long_rows_on_gpu(cuda_device, rng, n, m):
+    """The sliced long-rows kernels at the shapes chip_smoke.py times (m a
+    multiple of 4: the 16-byte loads; one chunk, four chunks, eight)
+    against the plain version at 50 sweeps with the bounds of the one-pass
+    test; two runs bit-equal; the two-read kernels, forced, agree with
+    the plain version too and count under their own name."""
+    Mr = T(_cost(rng, n, m)).to(cuda_device)
+    la = torch.full((n,), -np.log(float(n)), device=cuda_device)
+    lb = torch.full((m,), -np.log(float(m)), device=cuda_device)
+    rf, rg, _ = tduals.sinkhorn_duals_reference(la, lb, Mr, 50, 0.0)
+    Pr = torch.exp(Mr + rf[:, None] + rg[None, :])
+    reset_launch_counts()
+    f, g, _ = tduals.sinkhorn_duals(la, lb, Mr, 50, 0.0)
+    f2, g2, _ = tduals.sinkhorn_duals(la, lb, Mr, 50, 0.0)
+    assert launch_counts == {tduals.LONG_ROWS_NAME: 10}
+    assert torch.equal(f, f2) and torch.equal(g, g2)
+    P = torch.exp(Mr + f[:, None] + g[None, :])
+    assert float((P - Pr).abs().max()) <= 1e-5 * float(Pr.max())
+    rule = tduals.sinkhorn_route
+    tduals.sinkhorn_route = lambda *shape: tduals.Route(tduals.TWO_READ)
+    try:
+        reset_launch_counts()
+        f, g, _ = tduals.sinkhorn_duals(la, lb, Mr, 50, 0.0)
+    finally:
+        tduals.sinkhorn_route = rule
+    assert launch_counts == {tduals.TWO_READ_NAME: 5}
+    P = torch.exp(Mr + f[:, None] + g[None, :])
+    assert float((P - Pr).abs().max()) <= 1e-5 * float(Pr.max())

@@ -200,6 +200,47 @@ def test_pallas_srf_matches_pallas_kernel(bands, rng):
     np.testing.assert_allclose(got_auto, want_auto, rtol=0, atol=1e-5)
 
 
+def test_pallas_srf_past_the_first_kernels_limits(rng):
+    """B = 400 and S = 20 (past the first CUDA kernel's B <= 384 and
+    S <= 16; the Pallas kernel pads any B and S to 128): the plain version
+    == the Pallas kernel in interpret mode to 3e-6 relative on sums of
+    400 products in [0, 1) (~100; another order of f32 sums), the fill
+    exactly equal."""
+    flat = rng.random((300, 400)).astype(np.float32)
+    W = rng.random((400, 20)).astype(np.float32)
+    v = rng.random(300) > 0.3
+    want = np.asarray(jpallas.pallas_srf_synthesize(
+        jnp.asarray(flat), jnp.asarray(W), jnp.asarray(v), tile_rows=128,
+        interpret=True))
+    got = tsrf.pallas_srf_synthesize(T(flat), T(W), T(v)).numpy()
+    assert got.shape == (300, 20)
+    np.testing.assert_array_equal(got[~v], want[~v])
+    np.testing.assert_allclose(got, want, rtol=3e-6, atol=0)
+
+
+@pytest.mark.parametrize("b,s,want", [
+    (285, 13, ("tiled", 2)), (285, 3, ("tiled", 2)),
+    (285, 40, ("tiled", 1)), (401, 20, ("tiled", 1)),
+    (400, 20, ("generic", 0)), (244, 13, ("warp", 0)),
+    (384, 16, ("warp", 0)), (388, 16, ("generic", 0)),
+    (244, 17, ("generic", 0)), (2001, 16, ("generic", 0)),
+    (1, 1, ("tiled", 2))])
+def test_srf_route(b, s, want):
+    """The route by shape: the tiled kernel where gcd(B, 32) <= 2 and a
+    ring of 2 tiles of 64 rows (else 32) fits the 232,448 bytes a block
+    may use beside W and the partial sums; otherwise the warp kernel
+    within its B <= 384 and S <= 16, else the generic kernel. EMIT's 285
+    bands take 64-row tiles at 13 outputs (191,104 bytes). Each route
+    has a launch counter of its own."""
+    assert tsrf.srf_route(b, s) == want
+    assert len(set(tsrf.ROUTE_NAMES.values())) == 3
+    assert tsrf.ROUTE_NAMES[tsrf.TILED] == tsrf.KERNEL_NAME
+    if want[0] == "tiled":
+        assert tsrf._tiled_smem_bytes(b, s, *want[1:]) <= 232448
+    if (b, s) == (285, 13):
+        assert tsrf._tiled_smem_bytes(285, 13, 2) == 191104
+
+
 def test_srf_auto_without_pallas_is_the_matmul(rng):
     """srf_synthesize_auto(use_pallas=False) == srf_synthesize of the
     reference (atol 1e-5), with and without a mask, and launches no
@@ -252,3 +293,32 @@ def test_kernels_match_plain_on_card(cuda, rng):
     assert float((got - want).abs().max()) <= 1e-5
     assert torch.equal(got[~v], want[~v])
     assert launch_counts == {tq.KERNEL_NAME: 2, tsrf.KERNEL_NAME: 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s", [(285, 13), (285, 40), (401, 20), (400, 20),
+                                 (244, 5)])
+def test_srf_routes_match_plain_on_card(cuda, rng, b, s):
+    """Every route of the SRF kernel on the card (tiled with 64- and
+    32-row tiles, S past 16, the generic kernel, the warp kernel) on 1003
+    rows, once from a
+    16-byte-aligned base and once from a view 3 rows in: within 3e-6 of
+    the largest output of its plain version, the fill exact, one launch
+    each under the route's own counter; the tiled kernel's shared-memory plan equals the wrapper's
+    mirror."""
+    x = T(rng.random((1003, b)).astype(np.float32)).to(cuda)
+    W = T(rng.random((b, s)).astype(np.float32)).to(cuda)
+    v = T(rng.random(1003) > 0.3).to(cuda)
+    for rows in (slice(None), slice(3, None)):
+        reset_launch_counts()
+        got = tsrf.pallas_srf_synthesize(x[rows], W, v[rows])
+        want = tsrf.srf_synthesize_reference(x[rows], W, v[rows])
+        assert launch_counts == {
+            tsrf.ROUTE_NAMES[tsrf.srf_route(b, s)[0]]: 1}
+        assert float((got - want).abs().max()) <= 3e-6 * float(want.max())
+        assert bool((got[~v[rows]] == -9999.0).all())
+    from hyperres_torch.kernels._build import load_library
+    lib = load_library("srf_synthesize")
+    for r in (2, 1):
+        assert (lib.srf_tiled_smem_bytes(b, s, r)
+                == tsrf._tiled_smem_bytes(b, s, r))

@@ -7,6 +7,12 @@ kernel, the ``.npz`` checkpoint in both directions and the entry forward.
 Inputs are made with NumPy from a seed and given to both packages. The
 hand-written kernel itself runs only on a CUDA device (marked ``gpu``).
 
+The ``engine=`` argument is held to the reference's: ``"xla"`` against
+the reference's XLA program for models the kernel does not take,
+``"auto"``'s rule, ``"pallas"`` raising past the kernel's limits; the
+streamed route's chunked TF32 accumulation is emulated on the CPU from
+the very slabs the kernel reads.
+
 Tolerances: u16 products agree on the 65535 mask exactly and to 1 step
 elsewhere (the ridge contraction sums in another order, which moves a
 value sitting on a rounding edge by one step). Reflectances from the
@@ -296,13 +302,9 @@ def test_entry_matches_graft_entry():
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: 10 mantissa
-    bits, to nearest, ties away from zero, by adding half of the 13
-    dropped bits to the magnitude through the int32 view and clearing
-    them (a carry rounds into the exponent)."""
-    i = x.contiguous().view(torch.int32)
-    return ((i + 0x1000) & -0x2000).view(torch.float32)
+#: f32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds (the port's own
+#: helper, which also splits W for the streamed route)
+_tf32_rna = sr_predict.tf32_rna
 
 
 def _sr_tf32_u16(X, model, nodata, terms=3):
@@ -439,6 +441,263 @@ def test_kernel_shared_memory_limit():
         assert tb(k_cols, degree) == bands
 
 
+# -- engines and routes --------------------------------------------------------
+
+#: (Bx, By, degree) of models past the kernel's limits (Bx <= 16, degree
+#: <= 4): too many bands (F = 189), too high a degree (F = 125)
+XLA_MODELS = {"bx18_deg2": (18, 9, 2), "bx4_deg5": (4, 7, 5)}
+
+
+def _fit_jax(bx, by, degree, n=4000, seed=11, batch=512):
+    X, Y = _training_data(bx, by, n, seed)
+    return jridge.RidgeSpectralSR(
+        bx, by, JRidgeSRConfig(degree=degree, batch_pixels=batch)).fit(X, Y)
+
+
+@pytest.mark.parametrize("name", list(XLA_MODELS))
+def test_engine_xla_matches_jax(name):
+    """predict_cube_u16(engine="xla") and engine="auto" (which is "xla"
+    for these models) == the reference's predict_cube_u16(engine="xla")
+    on a 37 x 41 px cube with NaN and -9999 pixels (not a multiple of the
+    512-px batch): identical 65535 mask, <= 1 step; the row-major layout
+    and the serving form give the same codes; no kernel is counted."""
+    jm = _fit_jax(*XLA_MODELS[name])
+    tm = _carry(jm)
+    cube = _cube(jm.n_inputs, 37, 41, 3)
+    want = jm.predict_cube_u16(cube, nodata=NODATA, engine="xla")
+    reset_launch_counts()
+    for engine in ("xla", "auto"):
+        got = tm.predict_cube_u16(cube, nodata=NODATA, engine=engine)
+        assert tm.last_engine == "xla"
+        assert tuple(got.shape) == (jm.n_outputs, 37, 41)
+        _assert_u16_close(got.numpy(), want)
+        assert int((got == 65535).sum()) == 3 * jm.n_outputs
+    hwb = np.ascontiguousarray(cube.transpose(1, 2, 0))
+    rm = tm.predict_cube_u16(hwb, nodata=NODATA, layout="rowmajor")
+    np.testing.assert_array_equal(rm.permute(2, 0, 1).numpy(), got.numpy())
+    flat = hwb.reshape(-1, jm.n_inputs)
+    valid = sr_predict.valid_pixels(T(flat), NODATA)
+    serve = tridge.sr_predict_u16(flat, valid, tm)
+    np.testing.assert_array_equal(
+        serve.numpy(), rm.reshape(-1, jm.n_outputs).numpy())
+    assert not launch_counts
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_engines_agree_within_the_kernels_limits(jax_models, name):
+    """For a model the kernel takes, engine="xla" is within 1 step of
+    engine="pallas" (on the CPU: the kernel's plain version) and of the
+    reference's "xla" program, with identical masks; "auto" takes
+    "pallas" and gives its codes."""
+    jm = jax_models[name]
+    tm = _carry(jm)
+    cube = _cube(jm.n_inputs, 37, 41, 3)
+    xla = tm.predict_cube_u16(cube, nodata=NODATA, engine="xla")
+    assert tm.last_engine == "xla"
+    _assert_u16_close(xla.numpy(),
+                      jm.predict_cube_u16(cube, nodata=NODATA, engine="xla"))
+    pal = tm.predict_cube_u16(cube, nodata=NODATA, engine="pallas")
+    _assert_u16_close(xla.numpy(), pal.numpy())
+    auto = tm.predict_cube_u16(cube, nodata=NODATA)
+    assert tm.last_engine == "pallas"
+    np.testing.assert_array_equal(auto.numpy(), pal.numpy())
+
+
+@pytest.mark.parametrize("bx,degree,want", [
+    (10, 3, "pallas"), (12, 4, "pallas"), (16, 4, "pallas"), (1, 1, "pallas"),
+    (17, 1, "xla"), (18, 2, "xla"), (4, 5, "xla")])
+def test_engine_rule(bx, degree, want):
+    """engine="auto" is "pallas" where the kernel takes the model (Bx <=
+    16 and degree <= 4) and "xla" otherwise, from the model's shape alone
+    (nothing is fitted, nothing runs); engine="pallas" raises ValueError
+    past the limits and "xla" is always taken; an unknown engine raises."""
+    tm = tridge.RidgeSpectralSR(bx, 3, RidgeSRConfig(degree=degree),
+                                device="cpu")
+    assert tm.resolve_engine("auto") == want
+    assert tm.resolve_engine() == want
+    assert sr_predict.kernel_takes(bx, degree) == (want == "pallas")
+    assert tm.resolve_engine("xla") == "xla"
+    if want == "pallas":
+        assert tm.resolve_engine("pallas") == "pallas"
+    else:
+        with pytest.raises(ValueError, match="engine='pallas'"):
+            tm.resolve_engine("pallas")
+    with pytest.raises(ValueError, match="engine must be"):
+        tm.resolve_engine("mosaic")
+
+
+def test_engine_pallas_raises_past_the_limits():
+    """predict_cube_u16 and the serving form raise under engine="pallas"
+    for an 18-band model before anything runs (also on CPU tensors, which
+    within the limits take the kernel's plain version)."""
+    tm = _carry(_fit_jax(*XLA_MODELS["bx18_deg2"]))
+    cube = _cube(18, 24, 32, 1)
+    with pytest.raises(ValueError, match="engine='pallas'"):
+        tm.predict_cube_u16(cube, nodata=NODATA, engine="pallas")
+    with pytest.raises(ValueError, match="engine='pallas'"):
+        tridge.sr_predict_u16(np.zeros((4, 18), np.float32),
+                              np.ones(4, bool), tm, engine="pallas")
+
+
+@pytest.mark.parametrize("bx,degree,f,k_cols,want", [
+    (10, 3, 285, 320, ("resident", 32)), (10, 4, 1000, 1184, ("resident", 16)),
+    (12, 4, 1819, 2080, ("streamed", 32)),
+    (16, 4, 4844, 5376, ("streamed", 32))])
+def test_sr_route(bx, degree, f, k_cols, want):
+    """The kernel's route by shape: W resident in shared memory where its
+    hi / lo tile fits (sr_tile_bands), streamed in 32-column slabs
+    otherwise; every model within Bx <= 16 and degree <= 4 has a route
+    (the largest takes 5376 K columns, 94,400 bytes)."""
+    fac = host.poly_factor_indices(bx, degree, False)
+    assert fac.shape[0] == f
+    assert sr_predict.sr_k_columns(fac) == k_cols
+    assert sr_predict.sr_route(k_cols, degree) == want
+    assert sr_predict.kernel_takes(bx, degree)
+    if want[0] == "resident":
+        assert sr_predict.sr_tile_bands(k_cols, degree) == want[1]
+    else:
+        assert sr_predict.sr_tile_bands(k_cols, degree) == 0
+        assert sr_predict._smem_bytes_streamed(k_cols, degree) <= 232448
+    assert sr_predict.sr_route(32 * 20000, 4) == (None, 0)
+
+
+def _unslab(slabs):
+    """sr_w_slabs' layout undone: (jt, chunks, 2048) -> (jt, chunks, 64
+    B rows, 32 K columns), element (n, k) from (n // 8) * 256 + (k // 4) *
+    32 + (n % 8) * 4 + k % 4."""
+    jt, nch, _ = slabs.shape
+    b = slabs.view(jt, nch, 8, 8, 8, 4)       # n // 8, k // 4, n % 8, k % 4
+    return b.permute(0, 1, 2, 4, 3, 5).reshape(jt, nch, 64, 32)
+
+
+def _sr_chunked_tf32_u16(X, model, nodata, streamed):
+    """The kernel's K loop on a (N, Bx) batch in plain torch. A: the
+    monomials in the kernel's K order (sr_pair_table; a padding column is
+    a product of the constant row, 1), split into TF32 hi and lo. Per
+    chunk of 32 K columns, in order, three f32 accumulators take A_hi
+    W_hi, A_hi W_lo and A_lo W_hi; the epilogue adds ((hi.hi + lo.hi) +
+    hi.lo) + intercept. W's chunks come from the slabs the streamed
+    route reads (``streamed``) or from the split the resident route makes
+    of W's rows in K order."""
+    valid = sr_predict.valid_pixels(X, nodata)
+    feats = tlstsq.poly_expand(
+        (torch.nan_to_num(X) - model.x_mean) / model.x_std,
+        model.factors.to(torch.int64))
+    _, src = sr_predict.sr_pair_table(model.factors.numpy())
+    src = T(src)
+    live = src >= 0
+    k_cols, by = src.shape[0], model.n_outputs
+    A = torch.ones((X.shape[0], k_cols))
+    A[:, live] = feats[:, src[live].to(torch.int64)]
+    a_hi = sr_predict.tf32_rna(A)
+    a_lo = sr_predict.tf32_rna(A - a_hi)
+    if streamed:
+        rows = _unslab(sr_predict.sr_w_slabs(model.W, src))
+        w_hi = rows[:, :, :32].permute(1, 3, 0, 2).reshape(k_cols, -1)[:, :by]
+        w_lo = rows[:, :, 32:].permute(1, 3, 0, 2).reshape(k_cols, -1)[:, :by]
+    else:
+        wk = torch.zeros((k_cols, by))
+        wk[live] = model.W[src[live].to(torch.int64)]
+        w_hi = sr_predict.tf32_rna(wk)
+        w_lo = sr_predict.tf32_rna(wk - w_hi)
+    hh = torch.zeros((X.shape[0], by))
+    hl = torch.zeros_like(hh)
+    lh = torch.zeros_like(hh)
+    for k0 in range(0, k_cols, 32):
+        k1 = k0 + 32
+        hh = hh + a_hi[:, k0:k1] @ w_hi[k0:k1]
+        hl = hl + a_hi[:, k0:k1] @ w_lo[k0:k1]
+        lh = lh + a_lo[:, k0:k1] @ w_hi[k0:k1]
+    z = ((hh + lh) + hl) + model.intercept
+    return tstats.quantize_reflectance_u16(tlstsq.sigmoid(z), valid[:, None])
+
+
+def test_streamed_route_matches_f32_and_pallas():
+    """The streamed route's arithmetic at Bx = 12, degree 4 (F = 1819,
+    2080 K columns in 65 slabs), emulated on the CPU from sr_w_slabs'
+    output: on a seeded 24 x 32 px cube with a NaN and nodata pixels the
+    codes are <= 1 step from the f32 plain version and from the JAX
+    Pallas kernel in interpret mode (row-major, tile_rows 256), with
+    identical 65535 masks; through the port's engine="auto" (which is
+    "pallas": on the CPU the plain version) likewise."""
+    jm = _fit_jax(12, 6, 4, n=6000)
+    tm = _carry(jm)
+    assert sr_predict.sr_route(sr_predict.sr_k_columns(tm.factors.numpy()),
+                               4) == ("streamed", 32)
+    cube = _cube(12, 24, 32, 9)
+    Xp = cube.reshape(12, -1).T.copy()
+    got = _sr_chunked_tf32_u16(T(Xp), tm, NODATA, streamed=True)
+    args = (tm.x_mean, tm.x_std, tm.W, tm.intercept, tm.factors)
+    plain = sr_predict.sr_predict_u16_reference(T(Xp), *args,
+                                                layout="rowmajor",
+                                                nodata=NODATA)
+    _assert_u16_close(got.numpy(), plain.numpy())
+    assert int((got == 65535).sum()) == 3 * 6
+    sels, _ = jlstsq.poly_selector_matrices(12, 4)
+    p = jm.params
+    valid = sr_predict.valid_pixels(T(Xp), NODATA).numpy()
+    want = pallas_sr_predict_u16(
+        jnp.asarray(np.nan_to_num(Xp)), jnp.asarray(valid), p.x_mean,
+        p.x_std, tuple(jnp.asarray(s) for s in sels), p.W, p.intercept,
+        tile_rows=256, interpret=True)
+    _assert_u16_close(got.numpy(), want)
+    auto = tm.predict_cube_u16(cube, nodata=NODATA)
+    assert tm.last_engine == "pallas"
+    _assert_u16_close(auto.reshape(6, -1).T.numpy(), want)
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_streamed_slabs_give_the_resident_codes(jax_models, name):
+    """On a model both routes take, the chunked emulation fed from the
+    streamed route's slabs gives exactly the codes of the one fed from
+    the resident route's split of W (the slabs hold the same TF32 hi and
+    lo values at the places the kernel reads), and both are <= 1 step
+    from the f32 plain version."""
+    tm = _carry(jax_models[name])
+    Xp = T(_cube(tm.n_inputs, 30, 33, 5).reshape(tm.n_inputs, -1).T.copy())
+    res = _sr_chunked_tf32_u16(Xp, tm, NODATA, streamed=False)
+    stm = _sr_chunked_tf32_u16(Xp, tm, NODATA, streamed=True)
+    np.testing.assert_array_equal(res.numpy(), stm.numpy())
+    plain = sr_predict.sr_predict_u16_reference(
+        Xp, tm.x_mean, tm.x_std, tm.W, tm.intercept, tm.factors,
+        layout="rowmajor", nodata=NODATA)
+    _assert_u16_close(res.numpy(), plain.numpy())
+
+
+def test_w_slabs_layout_and_cache(rng):
+    """sr_w_slabs: (ceil(By / 32), K / 32, 2048) float32; undone, slab
+    rows n < 32 are rna(W) of band 32 jt + n in the kernel's K order and
+    rows 32 + n are rna(W - hi), zeros for padding columns and bands past
+    By; hi + lo is within 2^-21 |w| of w. The wrapper's cache returns the
+    same slabs for the same W and factor table and new ones after an
+    in-place change."""
+    fac = T(host.poly_factor_indices(10, 3, False))
+    _, src = sr_predict.sr_pair_table(fac.numpy())
+    src = T(src)
+    W = T(rng.standard_normal((285, 40)).astype(np.float32))
+    slabs = sr_predict.sr_w_slabs(W, src)
+    assert slabs.shape == (2, 10, 2048) and slabs.dtype == torch.float32
+    rows = _unslab(slabs)
+    hi = rows[:, :, :32].permute(1, 3, 0, 2).reshape(320, 64)
+    lo = rows[:, :, 32:].permute(1, 3, 0, 2).reshape(320, 64)
+    live = src >= 0
+    wk = torch.zeros((320, 64))
+    wk[live, :40] = W[src[live].to(torch.int64)]
+    torch.testing.assert_close(hi, sr_predict.tf32_rna(wk), rtol=0, atol=0)
+    torch.testing.assert_close(lo, sr_predict.tf32_rna(wk - hi), rtol=0,
+                               atol=0)
+    assert float((hi + lo - wk).abs().max()) <= 2.0 ** -21 * float(
+        wk.abs().max())
+    assert not hi[~live].any() and not hi[:, 40:].any()
+    a = sr_predict._device_slabs(W, fac, src)
+    assert sr_predict._device_slabs(W, fac, src) is a
+    W[0, 0] += 1.0
+    assert sr_predict._device_slabs(W, fac, src) is not a
+    key = id(W)
+    del W
+    assert key not in sr_predict._SLABS
+
+
 def test_wrapper_rejects_bad_operands(jax_models):
     tm = _carry(jax_models["small"])
     X = torch.zeros((6, 10))
@@ -499,9 +758,10 @@ def test_sr_kernel_wide_and_degree4_on_gpu(cuda_device, by, layout):
     (a ragged last band tile) at degree 3 (F = 285, 32 bands per CTA),
     and degree 4 (F = 1000, 16 bands per CTA), 61 x 67 px (a ragged
     last pixel tile), NaN and nodata pixels: identical 65535 mask, <= 1
-    step from the plain version. F = 1819 (12 bands at degree 4) is
-    refused before launch; the wrapper's shared-memory mirror agrees with
-    the kernel's own."""
+    step from the plain version. The wrapper's shared-memory mirror
+    agrees with the kernel's own; past it (F = 1819, 12 bands at degree
+    4) the route is the streamed one, and a 17-band model is refused
+    before launch."""
     X, Y = _training_data(10, by, 20000, 8)
     for deg in (3, 4):
         tm = tridge.RidgeSpectralSR(10, by, RidgeSRConfig(degree=deg),
@@ -522,11 +782,91 @@ def test_sr_kernel_wide_and_degree4_on_gpu(cuda_device, by, layout):
         for deg in (3, 4):
             assert (lib.sr_predict_tile_bands(k_cols, deg)
                     == sr_predict.sr_tile_bands(k_cols, deg))
-    big = tridge.RidgeSpectralSR(12, 4, RidgeSRConfig(degree=4),
+    assert sr_predict.sr_route(2080, 4) == (sr_predict.STREAMED, 32)
+    big = tridge.RidgeSpectralSR(17, 4, RidgeSRConfig(degree=1),
                                  device=cuda_device)
-    big.params_from_numpy(np.zeros(12), np.ones(12),
+    big.params_from_numpy(np.zeros(17), np.ones(17),
                           np.zeros((big.n_features, 4)), np.zeros(4))
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="Bx <= 16"):
         sr_predict.sr_predict_u16(
-            torch.zeros((12, 64), device=cuda_device), big.x_mean,
+            torch.zeros((17, 64), device=cuda_device), big.x_mean,
             big.x_std, big.W, big.intercept, big.factors)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["cmajor", "rowmajor"])
+@pytest.mark.parametrize("bx,by", [(12, 32), (12, 285), (16, 8)])
+def test_sr_streamed_route_on_gpu(cuda_device, bx, by, layout):
+    """The streamed route on the card (Bx = 12 and 16 at degree 4: F =
+    1819 and 4844), 61 x 67 px with NaN and nodata pixels, both layouts:
+    identical 65535 mask, <= 1 step from the plain version; the streamed
+    counter alone moves; the kernel's own shared-memory rule agrees with
+    the wrapper's."""
+    X, Y = _training_data(bx, by, 8000, 8)
+    tm = tridge.RidgeSpectralSR(bx, by, RidgeSRConfig(degree=4),
+                                device=cuda_device).fit(X, Y)
+    Xc = T(_cube(bx, 61, 67, 7).reshape(bx, -1)).to(cuda_device)
+    args = (tm.x_mean, tm.x_std, tm.W, tm.intercept, tm.factors)
+    kw = {"nodata": NODATA}
+    if layout == "rowmajor":
+        Xc = Xc.T.contiguous()
+        kw = {"valid": sr_predict.valid_pixels(Xc, NODATA)}
+    reset_launch_counts()
+    got = sr_predict.sr_predict_u16(Xc, *args, layout=layout, **kw)
+    want = sr_predict.sr_predict_u16_reference(Xc, *args, layout=layout, **kw)
+    assert launch_counts == {sr_predict.STREAMED_NAME: 1}
+    _assert_u16_close(got.cpu().numpy(), want.cpu().numpy())
+    from hyperres_torch.kernels._build import load_library
+    lib = load_library("sr_predict")
+    for k_cols in list(range(32, 8192, 32)) + [21000 // 32 * 32, 32 * 700]:
+        for deg in (3, 4):
+            assert bool(lib.sr_predict_streamed_fits(k_cols, deg)) == (
+                sr_predict._smem_bytes_streamed(k_cols, deg) <= 232448)
+
+
+@pytest.mark.gpu
+def test_sr_routes_give_equal_codes_on_gpu(cuda_device, jax_models):
+    """The product model on the card through the resident route and,
+    forced by a stand-in route rule, through the streamed route: the same
+    codes bit for bit."""
+    tm = _carry(jax_models["product"]).to(cuda_device)
+    X = T(_cube(10, 61, 67, 7).reshape(10, -1)).to(cuda_device)
+    args = (tm.x_mean, tm.x_std, tm.W, tm.intercept, tm.factors)
+    a = sr_predict.sr_predict_u16(X, *args, nodata=NODATA)
+    rule = sr_predict.sr_route
+    sr_predict.sr_route = lambda k_cols, degree: (sr_predict.STREAMED, 32)
+    try:
+        reset_launch_counts()
+        b = sr_predict.sr_predict_u16(X, *args, nodata=NODATA)
+    finally:
+        sr_predict.sr_route = rule
+    assert launch_counts == {sr_predict.STREAMED_NAME: 1}
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_engines_on_gpu(cuda_device):
+    """On the card: an 18-band model runs through engine="auto" on the
+    "xla" program (no kernel counted, <= 1 step from the plain version)
+    and raises under engine="pallas"; a 12-band degree-4 model runs
+    through engine="auto" on the streamed kernel."""
+    X, Y = _training_data(18, 9, 4000, 8)
+    wide = tridge.RidgeSpectralSR(18, 9, RidgeSRConfig(degree=2),
+                                  device=cuda_device).fit(X, Y)
+    cube = T(_cube(18, 31, 33, 7)).to(cuda_device)
+    reset_launch_counts()
+    got = wide.predict_cube_u16(cube, nodata=NODATA)
+    assert wide.last_engine == "xla" and not launch_counts
+    want = sr_predict.sr_predict_u16_reference(
+        cube.reshape(18, -1), wide.x_mean, wide.x_std, wide.W,
+        wide.intercept, wide.factors, nodata=NODATA)
+    _assert_u16_close(got.reshape(9, -1).cpu().numpy(), want.cpu().numpy())
+    with pytest.raises(ValueError, match="engine='pallas'"):
+        wide.predict_cube_u16(cube, nodata=NODATA, engine="pallas")
+    X, Y = _training_data(12, 5, 8000, 8)
+    big = tridge.RidgeSpectralSR(12, 5, RidgeSRConfig(degree=4),
+                                 device=cuda_device).fit(X, Y)
+    big.predict_cube_u16(T(_cube(12, 31, 33, 7)).to(cuda_device),
+                         nodata=NODATA)
+    assert big.last_engine == "pallas"
+    assert launch_counts == {sr_predict.STREAMED_NAME: 1}
