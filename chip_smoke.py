@@ -67,6 +67,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 5c. The ``fusion_method="ot_affine"`` plan at full scale: shapes,
    finite fraction > 0.3, max <= 1; its PSNRs and SAM printed
    (``bench.py`` gates only ``ot_poly``).
+5d. ``fuse_pair`` (``hyperres_torch.pipeline``) on the full-scale scene's
+   UTM cube and S2 stack: ``engine="fused"`` for ``ot_poly``,
+   ``ot_affine``, ``linear`` and ``histogram``, ``engine="phases"`` for
+   ``ot_poly``, ``linear`` and ``histogram``, and ``ot_poly`` with
+   ``synth_method="box"``; the fused engine once to warm up and N_RUNS
+   times, the phase-wise engine (host-bound, 10-30 s a call, nothing to
+   warm) FUSE_PHASES_RUNS time, host clock around a synchronise, with
+   peak device memory. Every product:
+   shape, finite fraction > 0.3, max <= 1; the parametric methods the
+   pipeline PSNR / SAM gates of phase 5 against the default plan's
+   ``s2_reference_10m``. The fused and the phase-wise product of one
+   method (``ot_poly``, ``linear``, ``histogram``): PSNR >=
+   FUSED_PSNR_GATE (the reference's ``fused_psnr_gate``).
+5e. The ``warp_kernel="taploop"`` plan (``orthowarp_taploop``) at full
+   scale beside the default plan: its ``utm_cube`` against the default
+   plan's by ``cube_psnr_sam(erode=2)``: PSNR >= TAPLOOP_PSNR_GATE, mask
+   agreement > TAPLOOP_MASK_AGREEMENT; phase 5's gates. Then
+   ``warp_two_pass`` with a nodata value (one validity channel per band,
+   570 channels through both passes) through ``resample_to_grid``'s
+   ``kernel="auto"`` rule on the scene's GLT-gathered geographic cube
+   onto the UTM grid (1523 x 1550 x 285, cross-CRS): each scanline pass
+   must launch once; both passes of the kernel at these 570 channels
+   must agree with their plain version on the warp's own source and
+   positions, over every pixel, within KERNEL_TOL; and, as a further
+   reading, the result must lie within TWO_PASS_GATHER_TOL of the gather
+   kernels' where every tap of both reads a valid source (the valid
+   weight mass is 1), 2 px inside that area's edge.
 6. Spectral-SR fit and entry: fits the product ridge model (degree 3,
    10 -> 32 bands) on the card on 200k seeded pixels and checks its
    predictions against the same fit on the CPU (SR_FIT_TOL); runs
@@ -128,6 +155,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and the generic kernel forced onto the same rows), within
    SRF_WIDE_RTOL of the largest output.
 
+12. ``verify_granule`` (``hyperres_torch.verify``) on phase 9's granule
+   and the S2 stack GeoTIFF ``make_scene`` wrote beside it (VERIFY_S2_SIZE
+   px of 10 m, which covers the swath): the shipped route (two-pass warp,
+   fused engine) beside the exact one (tap-loop warp, phase-wise engine),
+   at the default gates; prints the three PSNRs, ``coeffs_max_abs_delta``,
+   ``total_seconds``, the launch counts and peak memory. ``passed`` must
+   be true. The scene is ``make_scene``'s of seed VERIFY_SCENE_SEED: the
+   fused product's gate compares two draws of 5000 OT samples (the fused
+   engine's from the card's generator, the phase-wise engine's from
+   NumPy's), and over scene seeds its reading spreads across the default
+   40 dB (``scripts/torch_verify_gate_spread.py`` takes it apart). Each
+   scanline pass must have launched once per chunk of the shipped ortho
+   run and never for the exact one.
+
 Prints the kernels' JSON line (the two banded passes, the dense route,
 ``sinkhorn_duals`` (one pass), ``sinkhorn_duals_long_rows``,
 ``sr_predict_u16``, ``sr_predict_u16_streamed``, ``quantize_u16``,
@@ -140,6 +181,7 @@ same function), then as its last line
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -203,11 +245,37 @@ SR_REPLACES = ("hyperres/kernels/pallas_ops.py:828 "
 #: the ortho export path: an EMIT granule at its real raw size, every band
 ORTHO_RAW = (1242, 1280)
 ORTHO_BANDS = 285
-#: the S2 stack that make_scene writes is not read on this path; the grid
-#: passed instead is a full S2 tile (10980 px of 10 m, the stack's own
-#: 60 m lattice) centred on the swath, so the UTM grid is the swath's
-ORTHO_S2_SIZE = 600
+#: the S2 stack that make_scene writes beside the granule: VERIFY_S2_SIZE px
+#: of 10 m (96 km; the 1242 x 1280 swath of 60 m pixels, turned by 13
+#: degrees, spans 91.6 x 89.9 km), read by the verify phase. The ortho
+#: phase passes a grid instead: a full S2 tile (10980 px of 10 m, the
+#: stack's own 60 m lattice) centred on the swath. Either way the UTM grid
+#: is the swath's.
+VERIFY_S2_SIZE = 9600
 S2_TILE_PX = 10980
+#: fuse_pair's fused product against its phase-wise product of the same
+#: method (the reference's fused_psnr_gate), and the tap-loop plan's UTM
+#: cube against the two-pass plan's (tests/test_verify_granule.py)
+FUSED_PSNR_GATE = 40.0
+TAPLOOP_PSNR_GATE = 40.0
+TAPLOOP_MASK_AGREEMENT = 0.999
+#: the generic two-pass warp against the gather kernels away from holes:
+#: the scanline-sheared kernel against the axis-aligned one
+#: (tests/test_torch_resample.py states it for the "auto" rule)
+TWO_PASS_GATHER_TOL = 2e-3
+#: make_scene's seed for the granule and the S2 stack of phases 9-12.
+#: verify_granule's fused gate compares two draws of OT samples, and on an
+#: H100 it reads 35.52, 41.38 and 45.67 dB on the scenes of seeds 0, 1 and
+#: 2 (scripts/torch_verify_gate_spread.py): this is the seed with the
+#: widest margin over the default 40 dB
+VERIFY_SCENE_SEED = 2
+#: timed calls of fuse_pair's phase-wise engine (no warm-up call)
+FUSE_PHASES_RUNS = 1
+#: fuse_pair's runs: (fusion_method, engine, synth_method)
+FUSE_RUNS = (("ot_poly", "fused", "srf"), ("ot_affine", "fused", "srf"),
+             ("linear", "fused", "srf"), ("histogram", "fused", "srf"),
+             ("ot_poly", "phases", "srf"), ("linear", "phases", "srf"),
+             ("histogram", "phases", "srf"), ("ot_poly", "fused", "box"))
 #: the fold's chunks: ceil(285 / OrthoConfig().band_chunk)
 ORTHO_CHUNKS = 9
 #: the u16 ingest against the f32 one on pixels whose taps are all valid:
@@ -288,8 +356,30 @@ SRF_WIDE_SHAPES = ((401, 20, "tiled"), (400, 20, "generic"),
 SRF_WIDE_RTOL = 3e-6
 
 
-def log(msg: str) -> None:
+#: lines printed once more at the end of the run, just before the
+#: ``kernels`` line (a caller may keep only the end of the output)
+SUMMARY = []
+
+
+def log(msg: str, keep: bool = False) -> None:
     print(msg, flush=True)
+    if keep:
+        SUMMARY.append(msg)
+
+
+class PhaseClock:
+    """Seconds of each phase of the run, by the host clock: ``mark(name)``
+    closes the span since the last mark."""
+
+    def __init__(self):
+        self.spans = {}
+        self._last = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.spans[name] = round(self.spans.get(name, 0.0)
+                                 + now - self._last, 1)
+        self._last = now
 
 
 def fail(msg: str) -> None:
@@ -1113,6 +1203,244 @@ def sinkhorn_long_rows_phase(dev, ot, n: int, m: int) -> dict:
             **sinkhorn_bound(n, m, res["sweeps"]), "library_ms": None}
 
 
+def fuse_phase(dev, scene: dict, utm_cube, target) -> None:
+    """Phase 5d (see the module docstring): ``fuse_pair`` by both engines
+    on the scene's UTM cube (``utm_cube``, on the card) and S2 stack;
+    ``target`` is the default plan's ``s2_reference_10m`` of them."""
+    import warnings
+
+    import torch
+    from hyperres_torch.pipeline import fuse_pair
+
+    products = {}
+    for method, engine, synth in FUSE_RUNS:
+        label = f"fuse_pair {method} engine={engine} synth={synth}"
+        torch.cuda.synchronize()
+        base_gb = torch.cuda.memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        warm = int(engine == "fused")
+        for i in range(warm + (N_RUNS if warm else FUSE_PHASES_RUNS)):
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                # no measured SRF table is imported here: the resolver
+                # says that it takes the parametric model
+                warnings.filterwarnings("ignore", message=".*PARAMETRIC.*")
+                res = fuse_pair(
+                    utm_cube, scene["wavelengths"], scene["utm60"],
+                    scene["s2_dn"], scene["s2_grid"],
+                    good_mask=scene["good_mask"], s2_scale=1e-4,
+                    s2_nodata=65535.0, fusion_method=method, engine=engine,
+                    synth_method=synth)
+            torch.cuda.synchronize()
+            if i >= warm:
+                times.append(time.perf_counter() - t0)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        if res.info["engine"] != engine:
+            fail(f"{label}: ran engine {res.info['engine']!r}")
+        fused = torch.from_numpy(res.fused_10m).to(dev)
+        coeffs = torch.from_numpy(res.coeffs.astype(np.float32)).to(dev)
+        if tuple(fused.shape) != EXPECT_FUSED:
+            fail(f"{label}: fused_10m {tuple(fused.shape)}, expected "
+                 f"{EXPECT_FUSED}")
+        parametric = method != "histogram"
+        if parametric:
+            finite_frac, fmax, psnr_db, method_psnr_db, sam_rad = (
+                accuracy_metrics(fused, target, coeffs, method))
+            acc = (f"pipeline PSNR {psnr_db:.3f} dB, SAM {sam_rad:.6f} rad, "
+                   f"method PSNR {method_psnr_db:.3f} dB")
+        else:
+            vf = torch.isfinite(fused).all(dim=-1)
+            finite_frac = float(vf.to(torch.float32).mean())
+            fmax = float(torch.nan_to_num(fused, nan=-1.0).max())
+            acc = "no parametric map (pipeline PSNR does not apply)"
+        log(f"{label}: runs (s) {[round(t, 3) for t in times]}, median "
+            f"{statistics.median(times):.3f} s; peak memory {peak_gb:.2f} GB "
+            f"({base_gb:.2f} GB held before the call); {acc}; finite frac "
+            f"{finite_frac:.4f}, max {fmax:.4f}; n_valid_60m "
+            f"{res.info['n_valid_60m']}; stages {res.info['stages']}",
+            keep=True)
+        ok = finite_frac > GATES["finite_frac_min"] and fmax <= GATES["max_le"]
+        if parametric:
+            ok = (ok and psnr_db >= GATES["psnr_db_min"]
+                  and sam_rad <= GATES["sam_rad_max"])
+        if not ok:
+            fail(f"{label}: accuracy gates {GATES} not met")
+        if synth == "srf":
+            products[(method, engine)] = fused
+        del fused, res
+    def psnr_between(a, b) -> float:
+        both = torch.isfinite(a).all(dim=-1) & torch.isfinite(b).all(dim=-1)
+        d = torch.where(both[..., None], a - b, torch.zeros((), device=dev))
+        mse = float(torch.sum(d.double() ** 2) / (both.sum() * 3))
+        return float("inf") if mse == 0 else 10.0 * np.log10(1.0 / mse)
+
+    for method in ("ot_poly", "linear", "histogram"):
+        a, b = products[(method, "fused")], products[(method, "phases")]
+        same_mask = float((torch.isfinite(a).all(dim=-1)
+                           == torch.isfinite(b).all(dim=-1))
+                          .to(torch.float32).mean())
+        psnr_db = psnr_between(a, b)
+        log(f"fuse_pair {method}: fused vs phases PSNR {psnr_db:.3f} dB "
+            f"(gate {FUSED_PSNR_GATE}), mask agreement {same_mask:.6f}",
+            keep=True)
+        if not psnr_db >= FUSED_PSNR_GATE:
+            fail(f"fuse_pair {method}: the fused and the phase-wise product "
+                 f"disagree")
+
+
+def taploop_phase(dev, scene: dict, raw, s2, base_utm, base_times) -> None:
+    """Phase 5e (see the module docstring): the tap-loop plan beside the
+    default plan (``base_utm`` its UTM cube, ``base_times`` its run
+    seconds), then the generic two-pass warp with a nodata value against
+    the gather kernels."""
+    import torch
+    from hyperres_torch.core.constants import NO_DATA_VALUE
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.kernels.banded import KERNEL_NAMES
+    from hyperres_torch.kernels.glt import glt_gather
+    from hyperres_torch.kernels.host import scanline_cstar, source_index_field
+    from hyperres_torch.kernels.stats import cube_psnr_sam, erode_mask
+    from hyperres_torch.kernels.warp import (
+        resample_tensor_to_grid, two_pass_src_ext, warp_interpolate,
+        warp_interpolate_chunked, warp_two_pass,
+    )
+
+    tplan = build_plan(scene, dev, warp_kernel="taploop")
+    out, times, counts = run_plan(tplan, raw, s2, "warp_kernel='taploop' plan")
+    if any(name in counts for name in KERNEL_NAMES.values()):
+        fail(f"the tap-loop plan launched the scanline kernel: {counts}")
+    check_gates(tplan, out, s2, "warp_kernel='taploop' plan")
+    warp_ms = {"taploop": cuda_ms(lambda: tplan.warp(raw), 2)}
+    utm = out["utm_cube"]
+    del out
+    vf, p_db, s_rad = (float(v) for v in cube_psnr_sam(
+        base_utm, utm, fill=NO_DATA_VALUE, erode=2))
+    agree = float(((base_utm[..., 0] != NO_DATA_VALUE)
+                   == (utm[..., 0] != NO_DATA_VALUE))
+                  .to(torch.float32).mean())
+    log(f"two-pass plan's utm_cube vs the tap-loop plan's: PSNR {p_db:.2f} "
+        f"dB (gate {TAPLOOP_PSNR_GATE}), SAM {s_rad:.5f} rad, mask "
+        f"agreement {agree:.6f} (> {TAPLOOP_MASK_AGREEMENT}), valid frac "
+        f"{vf:.4f}; plan seconds: tap-loop median "
+        f"{statistics.median(times):.4f}, two-pass median "
+        f"{statistics.median(base_times):.4f}; the warp alone: tap-loop "
+        f"{warp_ms['taploop']:.2f} ms ({tplan.warp_statics.row_chunks} row "
+        f"chunks)", keep=True)
+    if not (p_db >= TAPLOOP_PSNR_GATE and agree > TAPLOOP_MASK_AGREEMENT):
+        fail("the two-pass plan's utm_cube departs from the tap-loop plan's")
+    del utm
+
+    # the generic two-pass warp with one validity channel per band
+    ortho = glt_gather(raw, tplan._flat_idx, tplan._valid)
+    del tplan
+    grids = (scene["ortho_grid"], scene["utm60"])
+    kw = dict(method="cubic", nodata=NO_DATA_VALUE, fill=NO_DATA_VALUE)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    got = resample_tensor_to_grid(ortho, *grids, **kw)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if counts != {name: 1 for name in KERNEL_NAMES.values()}:
+        fail(f"resample_to_grid's auto rule should take warp_two_pass here "
+             f"and launch each scanline pass once: {counts}")
+    # both warps again on fields made once (the host's index fields and
+    # scanline inversion are not the warps' time)
+    rows_np, cols_np = source_index_field(*grids)
+    rows, cols, cstar = (torch.from_numpy(a).to(dev) for a in (
+        rows_np, cols_np, scanline_cstar(rows_np, cols_np, grids[0].height)))
+    # the scanline kernel at this channel count against its plain version
+    # on the warp's own inputs, both passes, every pixel
+    src_ext = two_pass_src_ext(ortho, NO_DATA_VALUE)
+    wide = compare_passes(src_ext, cstar, rows, "cubic", timed=False)
+    for name, r in wide.items():
+        log(f"{name} at {src_ext.shape[-1]} channels (src "
+            f"{tuple(src_ext.shape)}, cubic) vs plain: max abs err "
+            f"{r['max_abs_err']:.3e} (tol {KERNEL_TOL:g})", keep=True)
+        if not r["max_abs_err"] <= KERNEL_TOL:
+            fail(f"{name} disagrees with its plain version at "
+                 f"{src_ext.shape[-1]} channels: {r['max_abs_err']:.3e}")
+    del src_ext, wide
+    ms = cuda_ms(lambda: warp_two_pass(ortho, rows, cols, cstar,
+                                       nodata=NO_DATA_VALUE), 3)
+    want = warp_interpolate_chunked(ortho, rows, cols, nodata=NO_DATA_VALUE,
+                                    method="cubic", band_chunk=32)
+    gather_ms = cuda_ms(lambda: warp_interpolate_chunked(
+        ortho, rows, cols, nodata=NO_DATA_VALUE, method="cubic",
+        band_chunk=32), 1)
+    valid = (got != NO_DATA_VALUE).all(dim=-1) & (want != NO_DATA_VALUE).all(
+        dim=-1)
+    # where every tap of both warps reads a valid source the valid weight
+    # mass is 1: the validity plane warped as data, 2 px inside its edge
+    # (beside the swath's edge the signed cubic weights leave a small mass
+    # to divide by, another one in each warp, and the quotients part)
+    vplane = (ortho[..., :1] != NO_DATA_VALUE).to(torch.float32)
+    mass = warp_interpolate(vplane, rows, cols, method="cubic",
+                            fill=0.0)[..., 0]
+    inner = erode_mask(((mass - 1.0).abs() <= 1e-6) & valid, 2)
+    diff = (got - want).abs()
+    err_in = float(diff[inner].max())
+    err_all = float(diff[valid].max())
+    fill_agree = float(((got == NO_DATA_VALUE) == (want == NO_DATA_VALUE))
+                       .to(torch.float32).mean())
+    log(f"warp_two_pass with nodata ({tuple(ortho.shape)} geographic -> "
+        f"{tuple(got.shape)} UTM, {2 * ortho.shape[-1]} channels): launches "
+        f"{counts}; vs the gather kernels where every tap is valid, 2 px "
+        f"inside ({int(inner.sum())} of {int(valid.sum())} valid px) max abs "
+        f"err {err_in:.3e} (tol {TWO_PASS_GATHER_TOL:g}), on all jointly "
+        f"valid px {err_all:.3e}, "
+        f"fill agreement {fill_agree:.6f}; {ms:.2f} ms against {gather_ms:.2f} "
+        f"ms for the gather kernels in 32-band chunks; peak memory "
+        f"{peak_gb:.2f} GB", keep=True)
+    if not (err_in <= TWO_PASS_GATHER_TOL and int(inner.sum()) > 10 ** 6):
+        fail("warp_two_pass with a nodata value departs from the gather "
+             "kernels")
+
+
+def verify_phase(dev, scene, out_dir) -> None:
+    """Phase 12 (see the module docstring): ``verify_granule`` on the
+    ortho phase's granule and S2 stack, on the default device."""
+    import warnings
+
+    import torch
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.kernels.banded import KERNEL_NAMES
+    from hyperres_torch.verify import verify_granule
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*PARAMETRIC.*")
+        res = verify_granule(scene.emit_nc_path, scene.s2_tif_path, out_dir)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    m = res.metrics
+    log(f"verify_granule: {secs:.2f} s (total_seconds {m['total_seconds']}); "
+        f"passed {res.passed}; cube shipped vs exact "
+        f"{m['cube_shipped_vs_exact']}; fused shipped vs exact "
+        f"{m['fused_shipped_vs_exact']}; pipeline audit "
+        f"{m['pipeline_audit']}; method audit {m['method_audit']}; "
+        f"coeffs_max_abs_delta {m['coeffs_max_abs_delta']}; shipped backend "
+        f"{m['ortho_shipped_backend']}; launches {counts}; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB", keep=True)
+    log(f"verify_granule gates: {m['gates']}", keep=True)
+    if not (res.json_path.exists() and res.report_path.exists()):
+        fail("verify_granule wrote no report")
+    if not res.passed:
+        fail(f"verify_granule: passed is False at the default gates: "
+             f"{m['gates']}")
+    # the shipped ortho run folds ORTHO_CHUNKS chunks through both passes;
+    # the exact run and both fusions launch no scanline kernel
+    for name in KERNEL_NAMES.values():
+        if counts.get(name, 0) != ORTHO_CHUNKS:
+            fail(f"verify_granule: {name} launched {counts.get(name, 0)} "
+                 f"times, expected {ORTHO_CHUNKS}")
+
+
 def prefetch_phase(dev) -> None:
     """Phase 2a (see the module docstring)."""
     import torch
@@ -1164,8 +1492,9 @@ def n_differ(a, b) -> int:
 def ortho_phase(dev, workdir) -> dict:
     """Phase 9 (see the module docstring). Returns what the kernel phases
     take from it: the f32 run's UTM cube on the card (``cube``), the
-    granule's wavelengths and good-band mask, and the u16 run's launch
-    counts."""
+    granule's wavelengths and good-band mask, the u16 run's launch
+    counts, and the scene (``scene``: the granule and the S2 stack on
+    disk)."""
     import torch
     from hyperres_torch.core.config import OrthoConfig
     from hyperres_torch.core.constants import NO_DATA_VALUE
@@ -1185,7 +1514,7 @@ def ortho_phase(dev, workdir) -> dict:
     t0 = time.perf_counter()
     scene = make_scene(workdir / "scene", raw_shape=ORTHO_RAW,
                        n_bands=ORTHO_BANDS, compress_granule=False,
-                       s2_size=ORTHO_S2_SIZE)
+                       s2_size=VERIFY_S2_SIZE, seed=VERIFY_SCENE_SEED)
     s2 = scene.s2_grid
     cx, cy = scene.swath_center_utm
     half = S2_TILE_PX * 10.0 / 2.0
@@ -1194,7 +1523,9 @@ def ortho_phase(dev, workdir) -> dict:
                 10.0, S2_TILE_PX, S2_TILE_PX)
     gran_gb = scene.emit_nc_path.stat().st_size / 1e9
     log(f"ortho: granule {ORTHO_RAW + (ORTHO_BANDS,)} f32 uncompressed "
-        f"({gran_gb:.2f} GB) made in {time.perf_counter() - t0:.1f} s")
+        f"({gran_gb:.2f} GB) and the S2 stack ({VERIFY_S2_SIZE} px square, "
+        f"10 bands u16, {scene.s2_tif_path.stat().st_size / 1e9:.2f} GB) "
+        f"made in {time.perf_counter() - t0:.1f} s")
 
     out_dir = workdir / "ortho"
     runs = {}
@@ -1308,7 +1639,7 @@ def ortho_phase(dev, workdir) -> dict:
         fail("the u16 ingest departs from the f32 one beyond its bound")
     del ratio, cube16, mass, full
     return {"cube": cube32, "wavelengths": wl, "good": good,
-            "counts": runs["u16"][1]}
+            "counts": runs["u16"][1], "scene": scene}
 
 
 def quantize_phase(cube, launches: int) -> dict:
@@ -1526,6 +1857,7 @@ def srf_phase(cube, wavelengths, good) -> dict:
 def main() -> None:
     import torch
 
+    clock = PhaseClock()
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1556,8 +1888,10 @@ def main() -> None:
         log(f"build: {name}: nvcc {info['seconds']:.3f} s")
         log(info["ptxas"])
 
+    clock.mark("build")
     # -- 2a. the ingest's two hazards ----------------------------------------
     prefetch_phase(dev)
+    clock.mark("ingest hazards")
 
     # -- 3. kernel vs plain at the scale-0.25 bench scene ------------------
     worst = {}
@@ -1579,6 +1913,7 @@ def main() -> None:
     del src_ext, plan, small
     log(f"kernel check done in {time.perf_counter() - t0:.1f} s")
 
+    clock.mark("kernel checks, scale 0.25")
     # -- 4. main path at full scale ------------------------------------------
     t0 = time.perf_counter()
     scene = generate_scene(MAIN_SCALE, 0)
@@ -1593,7 +1928,7 @@ def main() -> None:
         f"built in {t_plan:.1f} s; raw {tuple(raw.shape)}, UTM grid "
         f"{scene['utm60'].height}x{scene['utm60'].width}, 10 m grid "
         f"{scene['s2_grid'].height}x{scene['s2_grid'].width}")
-    out, _, counts = run_plan(plan, raw, s2, "main path")
+    out, base_times, counts = run_plan(plan, raw, s2, "main path")
     for name in REPLACES:
         if counts.get(name, 0) != N_RUNS + 1:
             fail(f"{name} launched {counts.get(name, 0)} times in "
@@ -1662,6 +1997,7 @@ def main() -> None:
         "bound_ms": dense["bound_ms"], "bound_by": "bytes",
         "library_ms": None})
 
+    clock.mark("plans (default, dense) and scanline timings")
     # -- 5b. Sinkhorn at 5000 x 5000 on the plan's OT samples ------------
     utm_cube = plan.warp(raw)
     samples = plan.ot_samples(utm_cube, s2, plan.generator(0))
@@ -1672,6 +2008,7 @@ def main() -> None:
     kernels.append(long_rows[0])
     del samples, utm_cube
 
+    clock.mark("Sinkhorn")
     # -- 5c. the ot_affine plan --------------------------------------------
     aplan = build_plan(scene, dev, fusion_method="ot_affine")
     out, _, _ = run_plan(aplan, raw, s2, "ot_affine plan")
@@ -1679,22 +2016,48 @@ def main() -> None:
                 gated=False)
     if tuple(out["coeffs"].shape) != (4, 3):
         fail(f"ot_affine params {tuple(out['coeffs'].shape)}, expected (4, 3)")
-    del out, aplan, raw, s2, plan, scene
+    del out, aplan
+
+    # -- 5e. the tap-loop plan; warp_two_pass with a nodata value ---------
+    utm_cube = plan.warp(raw)
+    taploop_phase(dev, scene, raw, s2, utm_cube, base_times)
+    del raw
+    clock.mark("ot_affine and tap-loop plans, warp_two_pass")
+
+    # -- 5d. fuse_pair, both engines ----------------------------------------
+    target = plan.s2_reference_10m(utm_cube, s2)
+    del s2, plan
     torch.cuda.empty_cache()
+    fuse_phase(dev, scene, utm_cube, target)
+    del utm_cube, target, scene
+    torch.cuda.empty_cache()
+    clock.mark("fuse_pair")
 
     kernels.extend(sr_phases(dev))
     torch.cuda.empty_cache()
+    clock.mark("SR")
 
     # -- 9-11. the ortho export path and its two kernels ------------------
     with tempfile.TemporaryDirectory() as d:
         ortho = ortho_phase(dev, Path(d))
-    kernels.append(quantize_phase(ortho["cube"],
-                                  ortho["counts"][QUANT_NAME]))
-    kernels.append(srf_phase(ortho["cube"], ortho["wavelengths"],
-                             ortho["good"]))
-    del ortho
+        kernels.append(quantize_phase(ortho["cube"],
+                                      ortho["counts"][QUANT_NAME]))
+        kernels.append(srf_phase(ortho["cube"], ortho["wavelengths"],
+                                 ortho["good"]))
+        clock.mark("ortho granule, quantize, SRF")
+        scene = ortho.pop("scene")
+        del ortho
+        torch.cuda.empty_cache()
+        shutil.rmtree(Path(d) / "ortho")   # ~10 GB of products, checked
+        # -- 12. verify_granule on that granule ------------------------------
+        verify_phase(dev, scene, Path(d) / "verify")
+        clock.mark("verify_granule")
+    log("the parity path's readings, again:")
+    for line in SUMMARY:
+        log(line)
+    log(f"chip_smoke phases (s): {clock.spans}")
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
-    # again, beside the numbers: a caller may keep only the output's end
+    # again, beside the numbers
     log(card_line)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

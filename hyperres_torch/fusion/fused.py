@@ -1,14 +1,17 @@
 """The fused granule plans (``hyperres/fusion/fused.py:73-671``).
 
 - :class:`FusedFusionPlan` — the four fusion phases over an EMIT cube
-  already on the 60 m grid: SRF synthesis of B2/B3/B4, the 10 m S2 RGB
-  box-averaged onto the 60 m grid, the shared 2-98 % stretch, an OT
-  (Sinkhorn) + degree-4 polynomial fit per channel, and the bilinear
-  60 m -> 10 m upsample with the fit applied.
+  already on the 60 m grid: SRF (or box) synthesis of B2/B3/B4, the
+  10 m S2 RGB box-averaged onto the 60 m grid, the shared 2-98 %
+  stretch, the fit of ``fusion_method`` (OT + degree-4 polynomial per
+  channel, OT + affine, per-channel linear, or histogram matching), and
+  the bilinear 60 m -> 10 m upsample with the fit applied.
 - :class:`FusedOrthoFusionPlan` — the full raw -> fused granule path:
-  GLT gather + two-pass cubic scanline warp onto the S2-anchored UTM
-  grid (the hand-written kernel, by its banded route or, with
-  ``warp_kernel="pallas"``, its dense route), then the fusion phases.
+  GLT gather + cubic warp onto the S2-anchored UTM grid, then the
+  fusion phases. The warp is the two-pass scanline warp (the
+  hand-written kernel, by its banded route or, with
+  ``warp_kernel="pallas"``, its dense route) or, with
+  ``warp_kernel="taploop"``, the exact tap-loop gathers.
 
 A plan holds buffers, not parameters: its state is the host precompute
 (GLT indices, warp index fields, SRF weights, grid-transfer specs),
@@ -16,16 +19,14 @@ built once per grid pair and moved to ``device``. PyTorch runs eagerly,
 so there is no compiled program; ``state_dict_numpy``/``from_state``
 carry the state across (for instance from the reference's plan).
 
-Ported: ``fusion_method="ot_poly"`` (the bench default) and
-``"ot_affine"`` with the ``"srf"`` synthesis. ``linear``, ``histogram``,
-the box synthesis and the tap-loop warp raise :class:`FusedUnsupported`
-for now.
+:class:`FusedUnsupported` is raised for what the reference's fused
+program refuses too: grids that do not share a CRS, an unknown
+``fusion_method`` or ``synth_method``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -38,27 +39,31 @@ from ..core.grid import Grid
 
 from ..device import resolve_device
 from ..kernels.host import (
-    build_srf_weight_matrix, prepare_glt, scanline_cstar,
+    build_box_weight_matrix, build_srf_weight_matrix, prepare_glt, scanline_cstar,
     separable_fast_spec, separable_index_axes, separable_weight_matrix,
     source_index_field,
 )
-from ..kernels.lstsq import affine_fit, polyfit, polyval_channels
+from ..kernels.lstsq import (
+    affine_fit, linear_fit_masked, polyfit, polyval_channels,
+)
 from ..kernels.sinkhorn import ot_barycentric_targets
 from ..kernels.srf import srf_synthesize
 from ..kernels.stats import shared_percentile_stretch
 from ..kernels.warp import (
-    WARP_BACKENDS, orthowarp_two_pass, separable_resample_fast,
-    separable_resample_matmul,
+    WARP_BACKENDS, orthowarp_taploop, orthowarp_two_pass,
+    separable_resample_fast, separable_resample_matmul,
 )
-from ..spectral.srf_tables import builtin_srf
+from ..spectral.srf_tables import load_srf, warn_if_parametric_srf
+from .histogram import _match_rgb_device
 from .sampling import sample_valid_pixels_device
 
-FUSED_METHODS = ("ot_poly", "ot_affine")
+FUSED_METHODS = ("ot_poly", "ot_affine", "linear", "histogram")
 DeviceLike = Union[str, torch.device, None]
 
 
 class FusedUnsupported(ValueError):
-    """The port cannot express the requested configuration (yet)."""
+    """The fused plans cannot express the requested configuration (the
+    caller may fall back to the phase-wise path)."""
 
 
 @dataclass(frozen=True)
@@ -78,17 +83,22 @@ class FusionStatics:
     # (row_spec, col_spec), or None -> dense weight matrices
     down_fast: Optional[tuple] = None
     up_fast: Optional[tuple] = None
+    # ``linear``: identity under this many valid pixels (demo cell 72)
+    lin_min_count: int = 50
 
 
 @dataclass(frozen=True)
 class WarpStatics:
-    """Static configuration of the orthowarp stage (the two-pass
-    scanline warp; the tap loop is not ported yet). ``backend`` is
+    """Static configuration of the orthowarp stage. ``backend`` is
     ``orthowarp_two_pass``'s, as in the reference's ``WarpStatics``:
-    ``"pallas"`` for the dense route, any other for the banded one."""
+    ``"pallas"`` for the dense route, any other for the banded one.
+    ``warp_kernel="taploop"`` takes :func:`orthowarp_taploop` with
+    ``row_chunks`` row blocks instead."""
 
     resampling: str = "cubic"    # "cubic" | "bilinear"
     backend: str = "auto"        # "auto" | "xla" | "pallas" | "pallas_banded"
+    warp_kernel: str = "two_pass"  # "two_pass" | "taploop"
+    row_chunks: int = 64
 
 
 def _as_f32(x, device: torch.device) -> torch.Tensor:
@@ -156,21 +166,31 @@ def _stretch(st: FusionStatics, synth, s2_60, valid60):
 
 def apply_params(fusion_method: str, params: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
-    """A fitted mapping applied to (..., C): the per-channel polynomial
-    of ``ot_poly`` (params (C, deg+1)) or the channel-mixing affine map
-    ``x @ A + t`` of ``ot_affine`` (params (C+1, C), t in the last
-    row)."""
+    """A fitted parametric mapping applied to (..., C): the per-channel
+    polynomial of ``ot_poly`` (params (C, deg+1)), the channel-mixing
+    affine map ``x @ A + t`` of ``ot_affine`` (params (C+1, C), t in the
+    last row) or the per-channel line ``a x + b`` of ``linear`` (params
+    (C, 2)). ``histogram`` has no parameters."""
     if fusion_method == "ot_affine":
         return x @ params[:-1] + params[-1]
+    if fusion_method == "linear":
+        return x * params[:, 0] + params[:, 1]
+    if fusion_method == "histogram":
+        raise ValueError("the histogram match is not a parametric mapping")
     return polyval_channels(params, x)
 
 
-def _fit_params(st: FusionStatics, Xs, wxs, Ybar, n_valid):
+def _fit_ot(st: FusionStatics, emit_n, s2_n, valid60, n_valid, generator):
     """The fit on the OT targets, with the reference's fallbacks:
     ``ot_poly`` per-channel degree-``st.degree`` polynomials, identity
     under ``min_pixels`` (poly_regression.py:38-41); ``ot_affine`` the
     weighted affine map (``fused.py:193-200``), identity under 2 valid
     pixels (the where discards the fit, finite or not)."""
+    Xs, wxs, Ys, wys = _ot_samples(st, emit_n, s2_n, valid60, generator)
+    Ybar = ot_barycentric_targets(
+        Xs, Ys, reg=st.ot.reg, num_itermax=st.ot.num_itermax,
+        stop_thr=st.ot.stop_thr, wx=wxs, wy=wys,
+        debias=st.ot.debias)
     c = Xs.shape[1]
     dev = Xs.device
     if st.fusion_method == "ot_affine":
@@ -188,33 +208,55 @@ def _fit_params(st: FusionStatics, Xs, wxs, Ybar, n_valid):
     return torch.where(n_valid >= st.min_pixels, fit, ident)
 
 
+def _fit_linear(st: FusionStatics, emit_n, s2_n, valid60) -> torch.Tensor:
+    """``linear`` (``fused.py:212-223``): per channel y = a x + b over
+    the valid, finite, positive pixel pairs -> (C, 2)."""
+    flat_v = valid60.reshape(-1)
+    rows = []
+    for ch in range(emit_n.shape[-1]):
+        x = emit_n[..., ch].reshape(-1)
+        y = s2_n[..., ch].reshape(-1)
+        vk = (flat_v & torch.isfinite(x) & torch.isfinite(y)
+              & (x > 0.0) & (y > 0.0))
+        rows.append(torch.stack(linear_fit_masked(
+            x, y, vk, min_count=st.lin_min_count)))
+    return torch.stack(rows)
+
+
 def _fusion_core(st: FusionStatics, cube_hwb, s2rgb10_hwb, Wsrf, Wr60,
                  Wc60, Wr10, Wc10, generator: torch.Generator) -> Dict:
-    """The four fusion phases (``fused.py:145``), ``ot_poly`` and
-    ``ot_affine`` methods."""
+    """The four fusion phases (``fused.py:145``)."""
     synth, s2_60, valid60 = _synth_and_valid(st, cube_hwb, s2rgb10_hwb,
                                              Wsrf, Wr60, Wc60)
     n_valid = valid60.sum()
-    # Phase 3: shared stretch + OT fit
+    # Phase 3: shared stretch + fit
     emit_n, s2_n = _stretch(st, synth, s2_60, valid60)
-    Xs, wxs, Ys, wys = _ot_samples(st, emit_n, s2_n, valid60, generator)
-    Ybar = ot_barycentric_targets(
-        Xs, Ys, reg=st.ot.reg, num_itermax=st.ot.num_itermax,
-        stop_thr=st.ot.stop_thr, wx=wxs, wy=wys,
-        debias=st.ot.debias)
-    params = _fit_params(st, Xs, wxs, Ybar, n_valid)
+    c = emit_n.shape[-1]
+    if st.fusion_method in ("ot_poly", "ot_affine"):
+        params = _fit_ot(st, emit_n, s2_n, valid60, n_valid, generator)
+    elif st.fusion_method == "linear":
+        params = _fit_linear(st, emit_n, s2_n, valid60)
+    else:
+        # histogram, non-parametric: per-channel CDF transfer against the
+        # 60 m stretched reference; the 10 m product ranks its own pixels
+        # but maps into the same 60 m reference distribution
+        params = torch.zeros((c, 1), dtype=torch.float32,
+                             device=emit_n.device)
+
+    def apply(x, m):
+        if st.fusion_method == "histogram":
+            return _match_rgb_device(x, m, s2_n, valid60)
+        return apply_params(st.fusion_method, params, x)
 
     matched60 = torch.clamp(
-        torch.where(valid60[..., None],
-                    apply_params(st.fusion_method, params, emit_n), emit_n),
+        torch.where(valid60[..., None], apply(emit_n, valid60), emit_n),
         0.0, 1.0)
     # Phase 4: bilinear upsample of the stretched sim bands to 10 m and
     # the same mapping there; invalid 60 m sources contribute nothing,
     # zero valid mass -> NaN -> masked
     sim10 = _upsample_10m(st, emit_n, valid60, Wr10, Wc10)
     mask10 = torch.isfinite(sim10).all(dim=-1)
-    mapped10 = torch.clamp(apply_params(st.fusion_method, params,
-                                        torch.nan_to_num(sim10)), 0.0, 1.0)
+    mapped10 = torch.clamp(apply(torch.nan_to_num(sim10), mask10), 0.0, 1.0)
     fused = torch.where(mask10[..., None], mapped10,
                         torch.tensor(float("nan"), device=sim10.device))
     out = {"fused_10m": fused, "matched_60m": matched60,
@@ -251,18 +293,20 @@ def _fusion_matrices(
     """Host precompute of the fusion phases (``fused.py:341``): the SRF
     weight matrix and the 60 m <-> 10 m transfer specs (dense weight
     matrices only where a grid pair has no integer-aligned spec).
-    ``srf`` is an explicit ``{band: (nm, resp)}`` table; without one the
-    parametric model is used."""
-    if synth_method != "srf":
-        raise FusedUnsupported(f"synth_method {synth_method!r} is not "
-                               "ported yet (only 'srf')")
-    if srf is None:
-        warnings.warn(
-            "fusion: using the built-in PARAMETRIC Sentinel-2 "
-            f"{platform} SRF model, not measured curves (pass srf= to "
-            "use measured tables)", UserWarning, stacklevel=3)
-        srf = builtin_srf(platform, bands=list(bands))
-    Wsrf, _, _ = build_srf_weight_matrix(wavelengths, srf, good_mask)
+    ``synth_method="box"`` takes the rectangular band-pass weights
+    (``fused.py:358``). ``srf`` is an explicit ``{band: (nm, resp)}``
+    table; without one the resolver's (``spectral.load_srf``: measured
+    tables where imported, else the parametric model, with a warning)."""
+    if synth_method == "box":
+        Wsrf, _, _ = build_box_weight_matrix(
+            wavelengths, bands=list(bands), good_mask=good_mask)
+    elif synth_method == "srf":
+        if srf is None:
+            warn_if_parametric_srf(platform, context="fusion")
+            srf = load_srf(platform, bands=list(bands))
+        Wsrf, _, _ = build_srf_weight_matrix(wavelengths, srf, good_mask)
+    else:
+        raise FusedUnsupported(f"synth_method {synth_method!r}")
 
     sep_down = separable_index_axes(s2_grid, emit_grid)   # s2 -> emit 60 m
     sep_up = separable_index_axes(emit_grid, s2_grid)     # emit -> s2 10 m
@@ -330,6 +374,7 @@ class FusedFusionPlan:
         config: PolyFusionConfig = PolyFusionConfig(),
         s2_nodata: Optional[float] = None,
         s2_scale: Optional[float] = None,
+        lin_min_count: int = 50,
         return_intermediates: bool = False,
         srf=None,
         device: DeviceLike = None,
@@ -347,7 +392,8 @@ class FusedFusionPlan:
             pmax=float(config.stretch_percentiles[1]),
             emit_nodata=NO_DATA_VALUE,
             s2_nodata=None if nod is None else float(nod),
-            return_intermediates=return_intermediates)
+            return_intermediates=return_intermediates,
+            lin_min_count=lin_min_count)
         self._load(state, statics, resolve_device(device), s2_scale)
 
     @classmethod
@@ -355,7 +401,10 @@ class FusedFusionPlan:
                    device: DeviceLike = None,
                    s2_scale: Optional[float] = None) -> "FusedFusionPlan":
         """A plan from a :meth:`state_dict_numpy` dictionary; the
-        state's ``down_fast``/``up_fast`` replace those of ``statics``."""
+        state's ``down_fast``/``up_fast`` replace those of ``statics``.
+        ``Wsrf`` is the synthesis matrix of either ``synth_method`` (the
+        box weights are a ``Wsrf`` like any other); ``statics`` carries
+        the method and, for ``linear``, ``lin_min_count``."""
         plan = cls.__new__(cls)
         plan._load(state, statics, resolve_device(device), s2_scale)
         return plan
@@ -364,8 +413,8 @@ class FusedFusionPlan:
               device: torch.device, s2_scale: Optional[float]) -> None:
         if statics.fusion_method not in FUSED_METHODS:
             raise FusedUnsupported(
-                f"fusion_method {statics.fusion_method!r} is not ported "
-                f"yet (ported: {FUSED_METHODS})")
+                f"fusion_method {statics.fusion_method!r} has no fused "
+                f"program (supported: {FUSED_METHODS})")
         self.device = device
         self.s2_scale = s2_scale
         self.statics = dataclasses.replace(
@@ -440,8 +489,9 @@ class FusedFusionPlan:
 
 
 class FusedOrthoFusionPlan:
-    """The full granule path: GLT gather + two-pass scanline warp onto
-    the S2-anchored UTM grid + the four fusion phases (``fused.py:519``).
+    """The full granule path: GLT gather + warp onto the S2-anchored
+    UTM grid (two-pass scanline or tap loop) + the four fusion phases
+    (``fused.py:519``).
     ``__call__(raw, s2_rgb10)`` returns the 285-band UTM cube
     (``"utm_cube"``) and the fused 10 m RGB (``"fused_10m"``), with the
     fit's ``"coeffs"``, ``"matched_60m"`` and ``"n_valid_60m"``."""
@@ -464,18 +514,18 @@ class FusedOrthoFusionPlan:
         s2_scale: Optional[float] = None,
         warp_kernel: str = "auto",
         resampling: str = "cubic",
+        orthowarp_row_chunks: int = 64,
+        lin_min_count: int = 50,
         return_intermediates: bool = False,
         srf=None,
         device: DeviceLike = None,
     ):
-        if warp_kernel == "taploop":
-            raise FusedUnsupported("warp_kernel 'taploop' is not ported "
-                                   "yet; use 'two_pass'")
         # "pallas": the dense scanline route; "pallas_banded", "auto" and
         # "two_pass": the banded one. The kernel needs no window, so the
         # reference's banded feasibility check has no counterpart here.
+        # "taploop": the exact gathers, no scanline field.
         backends = {"auto": "auto", "two_pass": "auto", "pallas": "pallas",
-                    "pallas_banded": "pallas_banded"}
+                    "pallas_banded": "pallas_banded", "taploop": "auto"}
         if warp_kernel not in backends:
             raise ValueError(f"unknown warp_kernel {warp_kernel!r}")
         dev = resolve_device(device)
@@ -483,13 +533,20 @@ class FusedOrthoFusionPlan:
             utm_grid, s2_grid, wavelengths, good_mask, platform=platform,
             synth_method=synth_method, fusion_method=fusion_method,
             config=config, s2_nodata=s2_nodata, s2_scale=s2_scale,
+            lin_min_count=lin_min_count,
             return_intermediates=return_intermediates, srf=srf, device=dev)
         flat_idx, valid = prepare_glt(np.asarray(glt), raw_shape_yx)
         wr, wc = source_index_field(ortho_grid, utm_grid)
-        cstar = scanline_cstar(wr, wc, ortho_grid.height)
+        taploop = warp_kernel == "taploop"
+        # the tap loop reads no scanline field: a (1, 1) dummy, as the
+        # reference's plan keeps
+        cstar = (np.zeros((1, 1), np.float32) if taploop
+                 else scanline_cstar(wr, wc, ortho_grid.height))
         self._load_warp({"flat_idx": flat_idx, "valid": valid, "wr": wr,
                          "wc": wc, "cstar": cstar},
-                        WarpStatics(resampling, backends[warp_kernel]), dev)
+                        WarpStatics(resampling, backends[warp_kernel],
+                                    "taploop" if taploop else "two_pass",
+                                    orthowarp_row_chunks), dev)
 
     @classmethod
     def from_state(cls, state: Dict, statics: FusionStatics,
@@ -501,7 +558,8 @@ class FusedOrthoFusionPlan:
         arrays ``flat_idx``, ``valid``, ``wr``, ``wc``, ``cstar`` and the
         fusion state (``Wsrf``, ``down_fast``, ``up_fast``, and dense
         transfer matrices where a spec is None). ``warp_statics`` takes
-        the reference plan's ``resampling`` and ``backend``."""
+        the reference plan's ``resampling``, ``backend``, ``warp_kernel``
+        and ``row_chunks``."""
         plan = cls.__new__(cls)
         dev = resolve_device(device)
         plan._fusion = FusedFusionPlan.from_state(state, statics, dev,
@@ -514,6 +572,9 @@ class FusedOrthoFusionPlan:
         if warp_statics.backend not in WARP_BACKENDS:
             raise ValueError(f"unknown warp backend "
                              f"{warp_statics.backend!r}")
+        if warp_statics.warp_kernel not in ("two_pass", "taploop"):
+            raise ValueError(f"unknown warp_kernel "
+                             f"{warp_statics.warp_kernel!r}")
         self.device = device
         self.warp_statics = warp_statics
         self._flat_idx = torch.from_numpy(
@@ -544,7 +605,13 @@ class FusedOrthoFusionPlan:
         return self._fusion.prepare_s2(s2_stack_bhw, rgb_band_idx)
 
     def warp(self, raw_hwb) -> torch.Tensor:
-        """The UTM cube alone: GLT gather + two-pass scanline warp."""
+        """The UTM cube alone: GLT gather + warp."""
+        ws = self.warp_statics
+        if ws.warp_kernel == "taploop":
+            return orthowarp_taploop(
+                _as_f32(raw_hwb, self.device), self._flat_idx, self._valid,
+                self._wr, self._wc, method=ws.resampling,
+                fill=NO_DATA_VALUE, row_chunks=ws.row_chunks)
         return orthowarp_two_pass(
             _as_f32(raw_hwb, self.device), self._flat_idx, self._valid,
             self._wr, self._wc, self._cstar,

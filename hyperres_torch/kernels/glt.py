@@ -1,4 +1,4 @@
-"""GLT orthorectification gather (``hyperres/kernels/glt.py:45``).
+"""GLT orthorectification gather (``hyperres/kernels/glt.py:45-63``).
 
 One ``index_select`` along the flattened raw-pixel axis of the
 ``(H*W, B)`` cube: the spectral axis stays minor, so each gathered row
@@ -8,9 +8,12 @@ the port-owned copy in :mod:`hyperres_torch.kernels.host`.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.constants import NO_DATA_VALUE
+from ..device import resolve_device
+from .host import prepare_glt
 
 
 def glt_take(raw_hwb: torch.Tensor, flat_idx: torch.Tensor
@@ -31,3 +34,17 @@ def glt_gather(raw_hwb: torch.Tensor, flat_idx: torch.Tensor,
     return torch.where(valid[..., None], glt_take(raw_hwb, flat_idx),
                        torch.tensor(fill_value, dtype=raw_hwb.dtype,
                                     device=raw_hwb.device))
+
+
+def orthorectify(raw_hwb, glt, fill_value: float = NO_DATA_VALUE,
+                 device=None) -> torch.Tensor:
+    """Reference-semantics ortho in one call (``glt.py:57``): the host
+    GLT precompute, then :func:`glt_gather` on ``device`` (default the
+    current CUDA device). ``raw_hwb`` is a NumPy array or a tensor."""
+    dev = resolve_device(device)
+    flat, valid = prepare_glt(np.asarray(glt),
+                              (raw_hwb.shape[0], raw_hwb.shape[1]))
+    return glt_gather(torch.as_tensor(raw_hwb).to(dev),
+                      torch.from_numpy(flat).to(dev),
+                      torch.from_numpy(valid).to(dev),
+                      fill_value=fill_value)

@@ -267,6 +267,29 @@ def separable_fast_spec(idx_1d: np.ndarray, src_size: int,
     return None
 
 
+# -- hyperres/kernels/warp.py:625 --------------------------------------------
+
+def integer_factor(src_grid: Grid, dst_grid: Grid) -> Optional[int]:
+    """The integer ratio f >= 1 of a same-CRS ``dst_grid`` to
+    ``src_grid`` when both axes share it and the dst origin lies on a
+    src pixel boundary, else None (the reference's ``_integer_factor``)."""
+    if src_grid.crs != dst_grid.crs:
+        return None
+    fx = dst_grid.dx / src_grid.dx
+    fy = dst_grid.dy / src_grid.dy
+    if abs(fx - round(fx)) > 1e-9 or abs(fy - round(fy)) > 1e-9:
+        return None
+    if round(fx) != round(fy) or round(fx) < 1:
+        return None
+    f = int(round(fx))
+    # grids must be aligned: dst origin on src pixel boundary
+    ox = (dst_grid.x0 - src_grid.x0) / src_grid.dx
+    oy = (src_grid.y0 - dst_grid.y0) / src_grid.dy
+    if abs(ox - round(ox)) > 1e-6 or abs(oy - round(oy)) > 1e-6:
+        return None
+    return f
+
+
 # -- hyperres/kernels/srf.py:27 ----------------------------------------------
 
 def trapezoid_weights(x: np.ndarray) -> np.ndarray:
@@ -309,6 +332,45 @@ def build_srf_weight_matrix(
             continue
         den = float(tw @ rsp_on)
         cols.append(tw * rsp_on / (den + 1e-32))
+        valid.append(True)
+    W = np.stack(cols, axis=1).astype(np.float32)
+    return W, names, np.asarray(valid, dtype=bool)
+
+
+# -- hyperres/kernels/srf.py:70 ----------------------------------------------
+
+def build_box_weight_matrix(
+    emit_wl: np.ndarray,
+    box_table: Optional[Dict[str, Tuple[float, float]]] = None,
+    good_mask: Optional[np.ndarray] = None,
+    bands: Optional[Sequence[str]] = None,
+) -> Tuple[np.ndarray, List[str], np.ndarray]:
+    """Weight matrix for the rectangular band-pass variant
+    (demo notebook cell 58): trapz over EMIT samples inside
+    [centre - bw/2, centre + bw/2], normalised by (w[-1] - w[0]). Bands
+    with < 2 samples in range are invalid (reference returns None)."""
+    if box_table is None:
+        from ..spectral.srf_tables import S2_BOX_TABLE
+        box_table = S2_BOX_TABLE
+    emit_wl = np.asarray(emit_wl, dtype=np.float64)
+    names = list(bands) if bands is not None else list(box_table.keys())
+    gm = (np.asarray(good_mask, dtype=bool) if good_mask is not None
+          else np.ones_like(emit_wl, dtype=bool))
+    cols = []
+    valid = []
+    for b in names:
+        centre, bw = box_table[b]
+        m = (emit_wl >= centre - bw / 2.0) & (emit_wl <= centre + bw / 2.0) & gm
+        idx = np.where(m)[0]
+        col = np.zeros_like(emit_wl)
+        if len(idx) < 2:
+            cols.append(col)
+            valid.append(False)
+            continue
+        sub_w = trapezoid_weights(emit_wl[idx])
+        den = emit_wl[idx][-1] - emit_wl[idx][0]
+        col[idx] = sub_w / den
+        cols.append(col)
         valid.append(True)
     W = np.stack(cols, axis=1).astype(np.float32)
     return W, names, np.asarray(valid, dtype=bool)

@@ -5,6 +5,7 @@
   semantics, coefficients highest power first. The fit is QR plus a
   triangular solve in f32 (not the normal equations), so degree-4
   Vandermonde systems stay well conditioned.
+- The masked linear fit ``y = a x + b`` in closed form (``:81``).
 - The affine fit (``:99-105``) by an SVD least squares that follows
   ``jnp.linalg.lstsq``.
 - Multivariate monomial expansion (``:166``) as ``degree`` gathered
@@ -68,6 +69,35 @@ def polyval_channels(coeffs: torch.Tensor, img: torch.Tensor
     """coeffs (C, deg+1), img (..., C) -> (..., C)."""
     return torch.stack([polyval(coeffs[c], img[..., c])
                         for c in range(img.shape[-1])], dim=-1)
+
+
+def linear_fit_masked(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
+                      min_count: int = 50
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """y = a x + b over the ``valid`` samples by the masked closed form
+    in f32 (``lstsq.py:81``, demo cell 72): the identity (1, 0) under
+    ``min_count`` valid samples or where the denominator
+    ``n sxx - sx^2`` vanishes (|.| <= 1e-20). Returns 0-d tensors.
+
+    Samples outside ``valid`` are set to zero before they are summed.
+    The reference multiplies them by a zero weight instead, so one NaN
+    outside the mask (a 60 m pixel the S2 stack does not cover) turns
+    its whole fit into NaN; with finite samples the two are equal."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.sum(valid.to(torch.float32))
+    x = torch.where(valid, x.to(torch.float32), zero)
+    y = torch.where(valid, y.to(torch.float32), zero)
+    sx = torch.sum(x)
+    sy = torch.sum(y)
+    sxx = torch.sum(x * x)
+    sxy = torch.sum(x * y)
+    denom = n * sxx - sx * sx
+    ok = denom.abs() > 1e-20
+    one = torch.ones((), device=x.device)
+    a = torch.where(ok, (n * sxy - sx * sy) / denom, one)
+    b = torch.where(ok, (sy - a * sx) / n, zero)
+    enough = n >= min_count
+    return torch.where(enough, a, one), torch.where(enough, b, zero)
 
 
 def lstsq(A: torch.Tensor, B: torch.Tensor,

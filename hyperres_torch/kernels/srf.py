@@ -21,18 +21,22 @@ matrix (``kernels.host.build_srf_weight_matrix``).
 - :func:`srf_synthesize_auto`: the reference's dispatcher
   (``pallas_ops.py:172``): the kernel with ``use_pallas=True``, the
   matmul otherwise.
+- :func:`pseudo_s2_srf_integral` / :func:`pseudo_s2_rgb`: the
+  reference's NumPy-in, NumPy-out synthesis API (``srf.py:131-157``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.constants import NO_DATA_VALUE
-from ..device import count_launch
+from ..device import count_launch, resolve_device
+from .host import SRFDict, build_srf_weight_matrix
 
 #: the routes (csrc/srf_synthesize.cu)
 TILED, GENERIC, WARP = "tiled", "generic", "warp"
@@ -191,3 +195,33 @@ def srf_synthesize_auto(cube_hwb: torch.Tensor, weights_bs: torch.Tensor,
     v = valid_mask.reshape(-1) if valid_mask is not None else None
     out = pallas_srf_synthesize(flat, weights_bs, v, fill_value)
     return out.reshape(h, w, weights_bs.shape[1])
+
+
+def pseudo_s2_srf_integral(R: np.ndarray, emit_w: np.ndarray,
+                           srf_dict: SRFDict,
+                           good_mask: Optional[np.ndarray] = None,
+                           device=None) -> Dict[str, Optional[np.ndarray]]:
+    """The reference's synthesis API (s2_emit/synth.py:9-45,
+    ``srf.py:131``): {band: (H, W) array, or None where the SRF misses
+    the EMIT range}, computed on ``device`` (default the current CUDA
+    device)."""
+    dev = resolve_device(device)
+    W, names, valid = build_srf_weight_matrix(emit_w, srf_dict, good_mask)
+    synth = srf_synthesize(
+        torch.from_numpy(np.asarray(R, dtype=np.float32)).to(dev),
+        torch.from_numpy(W).to(dev)).cpu().numpy()
+    return {name: synth[..., s] if valid[s] else None
+            for s, name in enumerate(names)}
+
+
+def pseudo_s2_rgb(pseudo_s2: Dict[str, Optional[np.ndarray]],
+                  order=("B4", "B3", "B2")) -> np.ndarray:
+    """(H, W, 3) RGB stack from the synthesis dict (synth.py:47-58,
+    ``srf.py:148``)."""
+    chans = []
+    for b in order:
+        x = pseudo_s2.get(b)
+        if x is None:
+            raise ValueError(f"Band {b} is None/missing in pseudo_s2.")
+        chans.append(x)
+    return np.stack(chans, axis=-1)

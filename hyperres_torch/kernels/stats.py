@@ -1,5 +1,6 @@
-"""Masked percentile stretch, binary erosion, the u16 quantizers and the
-OBS range estimator (``hyperres/kernels/stats.py``).
+"""Masked percentiles and stretches, min / max, binary erosion, the
+cube PSNR / SAM metrics, the u16 quantizers and the OBS range estimator
+(``hyperres/kernels/stats.py``).
 
 The reference finds its order statistics with a 32-step bit search
 (it works around the TPU sort's code size). Here they come from
@@ -78,9 +79,73 @@ def shared_percentile_stretch(img: torch.Tensor, mask: torch.Tensor,
     lohi = torch.as_tensor(masked_percentile_channels(img, mask,
                                                       [pmin, pmax]),
                            device=img.device)  # (C, 2)
-    lo = lohi[:, 0]
-    hi = lohi[:, 1]
-    return torch.clamp((img - lo) / (hi - lo + 1e-12), 0.0, 1.0)
+    return _stretch(img, lohi[:, 0], lohi[:, 1])
+
+
+def masked_percentile(x: torch.Tensor, mask: torch.Tensor,
+                      qs: Sequence[float]) -> torch.Tensor:
+    """Percentiles of ``x[mask]``, NaNs excluded (linear interpolation,
+    as ``np.percentile``; ``stats.py:25``). x and mask of one shape; qs
+    (Q,) in [0, 100] -> (Q,) float32 on x's device, NaN for an empty
+    mask."""
+    out = masked_percentile_channels(x.reshape(-1, 1, 1),
+                                     mask.reshape(-1, 1), qs)[0]
+    return torch.as_tensor(out, device=x.device)
+
+
+def masked_minmax(x: torch.Tensor, mask: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min, max) of ``x[mask]`` at a fixed shape: (inf, -inf) for an
+    empty mask (``stats.py:128``)."""
+    big = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    return (torch.where(mask, x, big).min(),
+            torch.where(mask, x, -big).max())
+
+
+def _stretch(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    return torch.clamp((x - lo) / (hi - lo + 1e-12), 0.0, 1.0)
+
+
+def robust_norm(x: torch.Tensor, pmin: float = 2.0, pmax: float = 98.0
+                ) -> torch.Tensor:
+    """Unmasked NaN-aware [pmin, pmax] stretch, clipped to [0, 1]
+    (color.py:6-8, ``stats.py:263``)."""
+    lo, hi = masked_percentile(x, torch.ones_like(x, dtype=torch.bool),
+                               [pmin, pmax])
+    return _stretch(x, lo, hi)
+
+
+def robust_norm_rgb(img: torch.Tensor, mask: torch.Tensor,
+                    pmin: float = 2.0, pmax: float = 98.0) -> torch.Tensor:
+    """Per-channel stretch within ``mask``; invalid pixels become NaN
+    (color.py:10-23, ``stats.py:271``). img (H, W, C)."""
+    lohi = torch.as_tensor(masked_percentile_channels(img, mask,
+                                                      [pmin, pmax]),
+                           device=img.device)
+    out = _stretch(img, lohi[:, 0], lohi[:, 1])
+    return out.masked_fill_(~mask[..., None], float("nan"))
+
+
+def cube_psnr_sam(cube: torch.Tensor, truth: torch.Tensor, fill: float,
+                  erode: int = 2, data_range: float = 1.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(valid fraction, PSNR dB, mean SAM rad) of an (H, W, B) product
+    cube against a truth cube over the ``erode``-px interior of the
+    cube's valid mask (``cube[..., 0] != fill``), as 0-d tensors on the
+    cube's device (``stats.py:337``): only scalars need to come back."""
+    vmask = cube[..., 0] != fill
+    e = erode_mask(vmask, erode)
+    n_px = e.sum().clamp(min=1)
+    zero = torch.zeros((), device=cube.device)
+    d2 = torch.sum((cube - truth) ** 2, dim=-1)
+    mse = torch.where(e, d2, zero).sum() / (n_px * cube.shape[-1])
+    p_db = 10.0 * torch.log10(data_range ** 2 / mse)
+    num = torch.sum(cube * truth, dim=-1)
+    den = (torch.linalg.norm(cube, dim=-1)
+           * torch.linalg.norm(truth, dim=-1) + 1e-12)
+    ang = torch.arccos(torch.clamp(num / den, -1.0, 1.0))
+    s_rad = torch.where(e, ang, zero).sum() / n_px
+    return vmask.to(torch.float32).mean(), p_db, s_rad
 
 
 def erode_mask(mask: torch.Tensor, iterations: int = 1) -> torch.Tensor:

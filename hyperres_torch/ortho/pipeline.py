@@ -10,8 +10,12 @@ Flow per product (DATA / LOC / OBS):
    read, optionally quantize to u16 / u12, pinned copy on a side stream,
    dequantize on the card), and each chunk is GLT-gathered and warped
    onto the S2-anchored UTM grid by the two-pass scanline warp
-   (``kernels.warp.orthowarp_two_pass``, the scanline CUDA kernel) and
-   written into its band slice of the UTM cube in place;
+   (``kernels.warp.orthowarp_two_pass``, the scanline CUDA kernel) or,
+   with ``warp_kernel="taploop"``, the exact tap-loop gathers
+   (``orthowarp_taploop``), and written into its band slice of the UTM
+   cube in place. With ``fused_orthowarp=False``, or a resampling other
+   than cubic / bilinear, the cube is assembled whole, GLT-gathered
+   (``glt_gather``) and resampled (``resample_to_grid``'s routes);
 3. device: the u16 GeoTIFF products are quantized on the card (the
    quantize CUDA kernel, validity tested in the kernel) and only the
    u16 arrays come back;
@@ -24,14 +28,12 @@ the device before they are taken.
 
 Differences from the reference, all deliberate:
 
-- ``warp_kernel="taploop"`` and ``fused_orthowarp=False`` (or a
-  resampling other than cubic / bilinear) raise ``NotImplementedError``:
-  ``orthowarp_taploop`` and ``resample_to_grid`` are not ported yet.
 - ``warp_backend`` ``"auto"``, ``"xla"`` and ``"pallas_banded"`` take
   the banded kernel passes, ``"pallas"`` the dense route; the CUDA
   kernel has no 384-sample window, so there is no banded-feasibility
   fallback. ``info["out"]["warp_backend"]`` records the route taken
-  (``"pallas_banded"`` or ``"pallas"``).
+  (``"pallas_banded"`` or ``"pallas"``); where the two-pass warp does
+  not run it records the configured backend, as the reference does.
 - The UTM cube is allocated at the granule's band count, so the tail
   chunk needs no padding bands and no slicing afterwards.
 - The ledger gains a ``data_xml`` stage and, on the streamed fold's
@@ -59,11 +61,16 @@ from ..core.grid import Grid, s2_anchored_target_grid
 from ..device import resolve_device
 from ..io import envi
 from ..io.granule import EmitGranule, EmitMaskGranule
-from ..io.ingest import dequant_slab, stream_cube_fold
+from ..io.ingest import (
+    dequant_slab, stream_cube_fold, stream_cube_to_device,
+)
 from ..io.tiff import TiffReader
 from ..io.xml_sidecar import write_xml_sidecar
+from ..kernels.glt import glt_gather
 from ..kernels.host import prepare_glt, scanline_cstar, source_index_field
-from ..kernels.warp import orthowarp_two_pass
+from ..kernels.warp import (
+    orthowarp_taploop, orthowarp_two_pass, resample_tensor_to_grid,
+)
 from . import products
 
 # EMIT L1B OBS band names (the 11 geometry bands,
@@ -121,26 +128,40 @@ def _grid_from_s2_tif(s2_tif_path: Union[str, Path]) -> Grid:
         return r.grid
 
 
+def _orthowarp(chunk: torch.Tensor, flat_idx, valid, wr, wc, cstar,
+               method: str, backend: str, kernel: str, row_chunks: int
+               ) -> torch.Tensor:
+    """The fused GLT + warp of one cube or band chunk by ``kernel``:
+    ``"two_pass"`` (the scanline kernel) or ``"taploop"``."""
+    if kernel == "two_pass":
+        return orthowarp_two_pass(chunk, flat_idx, valid, wr, wc, cstar,
+                                  method=method, fill=NO_DATA_VALUE,
+                                  backend=backend)
+    return orthowarp_taploop(chunk, flat_idx, valid, wr, wc, method=method,
+                             fill=NO_DATA_VALUE, row_chunks=row_chunks)
+
+
 def _warp_chunk_update(utm: torch.Tensor, payload, b0: int, flat_idx,
                        valid, wr, wc, cstar, method: str, transfer: str,
-                       backend: str) -> torch.Tensor:
+                       backend: str, kernel: str = "two_pass",
+                       row_chunks: int = 64) -> torch.Tensor:
     """Dequant + orthowarp one band chunk and write it into its band
     slice of the UTM cube, in place — the fold step of the streamed
     ingest (``pipeline.py:100``): each chunk's warp runs while the next
     chunk is read / quantized / shipped, and the full raw cube never
     sits on the card."""
     chunk = dequant_slab(payload, transfer, NO_DATA_VALUE)
-    w = orthowarp_two_pass(chunk, flat_idx, valid, wr, wc, cstar,
-                           method=method, fill=NO_DATA_VALUE,
-                           backend=backend)
+    w = _orthowarp(chunk, flat_idx, valid, wr, wc, cstar, method, backend,
+                   kernel, row_chunks)
     utm[..., b0:b0 + w.shape[-1]] = w
     return utm
 
 
 def _warp_chunk_update_bandmask(utm: torch.Tensor, payload, b0: int,
                                 flat_idx, valid, wr, wc, cstar, method: str,
-                                transfer: str, backend: str
-                                ) -> torch.Tensor:
+                                transfer: str, backend: str,
+                                kernel: str = "two_pass",
+                                row_chunks: int = 64) -> torch.Tensor:
     """Band-masked fold step (``pipeline.py:128``): the dequantized
     chunk is [data * vb | vb] (2 nb channels, vb the per-band 0/1
     validity from the L2A band mask, ``b0`` in that doubled band space).
@@ -150,9 +171,8 @@ def _warp_chunk_update_bandmask(utm: torch.Tensor, payload, b0: int,
     source masked, or cubic-lobe cancellation noise) is nodata."""
     chunk2 = dequant_slab(payload, transfer, NO_DATA_VALUE)
     nb = chunk2.shape[-1] // 2
-    w = orthowarp_two_pass(chunk2, flat_idx, valid, wr, wc, cstar,
-                           method=method, fill=NO_DATA_VALUE,
-                           backend=backend)
+    w = _orthowarp(chunk2, flat_idx, valid, wr, wc, cstar, method, backend,
+                   kernel, row_chunks)
     num = w[..., :nb]
     den = w[..., nb:]
     good = den > 1e-3
@@ -300,18 +320,6 @@ def orthorectify_granule(
         return OrthoResult(data_utm, grid, info,
                            wavelengths=wavelengths, good_mask=good_mask)
 
-    if not (cfg.fused_orthowarp and cfg.resampling in ("cubic", "bilinear")):
-        g.close()
-        raise NotImplementedError(
-            "the two-step gather + resample_to_grid path (fused_orthowarp="
-            f"{cfg.fused_orthowarp}, resampling={cfg.resampling!r}; "
-            "hyperres/kernels/warp.py:1094) is not ported")
-    if cfg.warp_kernel != "two_pass":
-        g.close()
-        raise NotImplementedError(
-            f"warp_kernel={cfg.warp_kernel!r}: orthowarp_taploop "
-            "(hyperres/kernels/warp.py:708) is not ported")
-
     # --- GLT preparation (host) ---
     t0 = time.perf_counter()
     flat_idx, valid = prepare_glt(g.glt, (g.raw_height, g.raw_width))
@@ -342,11 +350,22 @@ def orthorectify_granule(
     wr_field, wc_field = source_index_field(g.ortho_grid, utm_grid)
     wr_j = torch.from_numpy(wr_field).to(dev)
     wc_j = torch.from_numpy(wc_field).to(dev)
-    cstar_j = torch.from_numpy(
-        scanline_cstar(wr_field, wc_field, g.ortho_grid.height)).to(dev)
+    # the fused GLT + warp (one pass over the raw cube, no ortho cube),
+    # by the two-pass scanline kernel or the tap loop; else the two-step
+    # gather + resample_to_grid
+    fused = cfg.fused_orthowarp and cfg.resampling in ("cubic", "bilinear")
+    use_two_pass = fused and cfg.warp_kernel == "two_pass"
+    kernel = "two_pass" if use_two_pass else "taploop"
+    cstar_j = (torch.from_numpy(scanline_cstar(
+        wr_field, wc_field, g.ortho_grid.height)).to(dev)
+        if use_two_pass else None)
     warp_backend = cfg.warp_backend
-    info["out"]["warp_backend"] = ("pallas" if warp_backend == "pallas"
-                                   else "pallas_banded")
+    if use_two_pass:
+        info["out"]["warp_backend"] = ("pallas" if warp_backend == "pallas"
+                                       else "pallas_banded")
+    else:
+        info["out"]["warp_backend"] = ("auto" if warp_backend
+                                       == "pallas_banded" else warp_backend)
 
     device_holder: Dict = {}
 
@@ -360,16 +379,29 @@ def orthorectify_granule(
         va = valid_arg if valid_arg is not None else valid_j
         if utm_precomputed is not None:
             utm_dev = utm_precomputed
+        elif fused:
+            t = time.perf_counter()
+            raw_t = torch.as_tensor(cube_raw, dtype=torch.float32).to(dev)
+            utm_dev = _orthowarp(raw_t, flat_j, va, wr_j, wc_j, cstar_j,
+                                 cfg.resampling, warp_backend, kernel,
+                                 cfg.orthowarp_row_chunks)
+            del raw_t
+            timer.record(f"{kind}_two_pass_orthowarp" if use_two_pass
+                         else f"{kind}_fused_orthowarp", t,
+                         shape=list(utm_dev.shape),
+                         resampling=cfg.resampling)
         else:
             t = time.perf_counter()
             raw_t = torch.as_tensor(cube_raw, dtype=torch.float32).to(dev)
-            utm_dev = orthowarp_two_pass(
-                raw_t, flat_j, va, wr_j, wc_j, cstar_j,
-                method=cfg.resampling, fill=NO_DATA_VALUE,
-                backend=warp_backend)
+            ortho = glt_gather(raw_t, flat_j, va, fill_value=NO_DATA_VALUE)
             del raw_t
-            timer.record(f"{kind}_two_pass_orthowarp", t,
-                         shape=list(utm_dev.shape),
+            timer.record(f"{kind}_gather", t, shape=list(ortho.shape))
+            t = time.perf_counter()
+            utm_dev = resample_tensor_to_grid(
+                ortho, g.ortho_grid, utm_grid, method=cfg.resampling,
+                nodata=NO_DATA_VALUE, fill=NO_DATA_VALUE)
+            del ortho
+            timer.record(f"{kind}_warp", t, shape=list(utm_dev.shape),
                          resampling=cfg.resampling)
         if keep_device_cube and kind == "data":
             device_holder["data"] = utm_dev
@@ -422,6 +454,10 @@ def orthorectify_granule(
                 bmask = bmask[:, :, :g.n_bands]
                 info["mask"]["band_masked_px"] = int(bmask.sum())
                 vb = (~bmask).astype(np.float32)
+                if not fused:
+                    raise ValueError(
+                        "apply_band_mask needs the fused orthowarp path "
+                        "(fused_orthowarp=True, cubic/bilinear)")
             timer.record("mask_read", t0)
 
         read_seconds = [0.0]
@@ -435,9 +471,13 @@ def orthorectify_granule(
         raw = None
         utm_pre = None
         streaming = cfg.streaming_ingest and g.n_bands > cfg.band_chunk
+        # a streamed fold needs a warp that takes a band chunk alone: the
+        # two-step path gathers and resamples the whole cube
+        can_fold = streaming and fused
         fold_args = (flat_j, data_valid_j, wr_j, wc_j, cstar_j,
-                     cfg.resampling, cfg.ingest_transfer, warp_backend)
-        if vb is not None or streaming:
+                     cfg.resampling, cfg.ingest_transfer, warp_backend,
+                     kernel, cfg.orthowarp_row_chunks)
+        if vb is not None or can_fold:
             t0 = time.perf_counter()
             utm0 = torch.full((utm_grid.height, utm_grid.width, g.n_bands),
                               NO_DATA_VALUE, dtype=torch.float32,
@@ -477,11 +517,23 @@ def orthorectify_granule(
                     depth=cfg.ingest_depth, payload_mode=True, device=dev)
                 stage = "data_streamed_orthowarp"
             timer.record(stage, t0, transfer=cfg.ingest_transfer,
-                         chunk_bands=cb, kernel="two_pass",
+                         chunk_bands=cb, kernel=kernel,
                          resampling=cfg.resampling,
                          shape=[utm_grid.height, utm_grid.width,
                                 g.n_bands],
                          read_seconds=round(read_seconds[0], 6))
+        elif streaming:
+            # chunked reads overlapped with quantize + transfer and the
+            # assembly of the whole raw cube on the device
+            t0 = time.perf_counter()
+            raw = stream_cube_to_device(
+                read_bands, (g.raw_height, g.raw_width, g.n_bands),
+                transfer=cfg.ingest_transfer, chunk_bands=cfg.band_chunk,
+                depth=cfg.ingest_depth, device=dev)
+            timer.record("data_stream_ingest", t0,
+                         transfer=cfg.ingest_transfer,
+                         chunk_bands=cfg.band_chunk,
+                         depth=cfg.ingest_depth)
         else:
             raw = read_bands(0, g.n_bands)
         hdr_extra = {

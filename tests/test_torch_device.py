@@ -24,7 +24,18 @@ from hyperres_torch.fusion import ot as tot  # noqa: E402
 from hyperres_torch.fusion import ridge_sr as tridge  # noqa: E402
 from hyperres_torch.io import ingest as tingest  # noqa: E402
 from hyperres_torch.io import pipeline as tpipeline  # noqa: E402
+from hyperres_torch import pipeline as tfuse  # noqa: E402
+from hyperres_torch import verify as tverify  # noqa: E402
+from hyperres_torch.core.crs import CRS  # noqa: E402
+from hyperres_torch.core.grid import Grid  # noqa: E402
+from hyperres_torch.fusion.histogram import histogram_match_rgb  # noqa: E402
+from hyperres_torch.fusion.linear import calibrate_linear  # noqa: E402
+from hyperres_torch.io import envi as tenvi  # noqa: E402
+from hyperres_torch.kernels import glt as tglt  # noqa: E402
+from hyperres_torch.kernels import srf as tsrf  # noqa: E402
+from hyperres_torch.kernels import warp as twarp  # noqa: E402
 from hyperres_torch.ortho.pipeline import orthorectify_granule  # noqa: E402
+from hyperres_torch.spectral import synth as tsynth  # noqa: E402
 from hyperres_torch.spectral.srf_tables import builtin_srf  # noqa: E402
 from hyperres_torch.testing.bench_scene import generate_scene  # noqa: E402
 
@@ -89,6 +100,36 @@ def _prefetch(**kw):
     return list(tpipeline.PrefetchToDevice(iter(items), **kw))
 
 
+def _fuse_pair(scene, **kw):
+    """``fuse_pair`` on a 10 x 12 px 60 m grid (phase-wise: the fused
+    plan resolves its device in its constructor, a case of its own)."""
+    g60 = Grid(CRS.utm(33, True), 0.0, 0.0, 60.0, 60.0, 12, 10)
+    g10 = Grid(CRS.utm(33, True), 0.0, 0.0, 10.0, 10.0, 72, 60)
+    rng = np.random.default_rng(5)
+    cube = rng.random((10, 12, 285)).astype(np.float32)
+    s2 = rng.random((3, 60, 72)).astype(np.float32)
+    return tfuse.fuse_pair(cube, scene["wavelengths"], g60, s2, g10,
+                           fusion_method="linear", engine="phases",
+                           synth_method="box", **kw).fused_10m
+
+
+def _resample(**kw):
+    g60 = Grid(CRS.utm(33, True), 0.0, 0.0, 60.0, 60.0, 12, 10)
+    g10 = Grid(CRS.utm(33, True), 0.0, 0.0, 10.0, 10.0, 72, 60)
+    data = np.random.default_rng(6).random((10, 12, 2)).astype(np.float32)
+    return twarp.resample_to_grid(data, g60, g10, **kw)
+
+
+def _pseudo_s2_from_envi(scene, tmp, **kw):
+    g60 = Grid(CRS.utm(33, True), 0.0, 0.0, 60.0, 60.0, 6, 5)
+    cube = np.random.default_rng(7).random((5, 6, 285)).astype(np.float32)
+    tenvi.write_cube(tmp / "cube", cube, g60, interleave="bil",
+                     extra_header={"wavelength": [
+                         float(x) for x in scene["wavelengths"]]})
+    return tsynth.pseudo_s2_from_envi(tmp / "cube.hdr", bands=["B2"],
+                                      **kw)[0]["B2"]
+
+
 #: every entry point, called with the keyword arguments it is given
 ENTRY_POINTS = {
     "resolve_device": lambda sc, tmp, **kw: tdevice.resolve_device(
@@ -111,7 +152,36 @@ ENTRY_POINTS = {
         _rgb_pair()[0], np.array([[0.0, 1.0, 0.0]] * 3), **kw),
     "stream_cube_to_device": lambda sc, tmp, **kw: _stream(**kw),
     "PrefetchToDevice": lambda sc, tmp, **kw: _prefetch(**kw),
+    "fuse_pair": lambda sc, tmp, **kw: _fuse_pair(sc, **kw),
+    "fuse_pair(fused)": lambda sc, tmp, **kw: tfuse.fuse_pair(
+        sc["raw"][:2, :2], sc["wavelengths"], sc["utm60"],
+        sc["s2_dn"], sc["s2_grid"], engine="fused", **kw),
+    "resample_to_grid": lambda sc, tmp, **kw: _resample(**kw),
+    "reproject_stack_to_grid": lambda sc, tmp, **kw:
+        tsynth.reproject_stack_to_grid(
+            np.ones((1, 10, 12), np.float32),
+            Grid(CRS.utm(33, True), 0.0, 0.0, 60.0, 60.0, 12, 10),
+            Grid(CRS.utm(33, True), 0.0, 0.0, 10.0, 10.0, 72, 60), **kw),
+    "histogram_match_rgb": lambda sc, tmp, **kw: histogram_match_rgb(
+        *_rgb_pair(), **kw),
+    "calibrate_linear": lambda sc, tmp, **kw: calibrate_linear(
+        np.moveaxis(_rgb_pair()[0], -1, 0), np.moveaxis(_rgb_pair()[1], -1, 0),
+        _rgb_pair()[2], **kw)[0],
+    "pseudo_s2_from_envi": lambda sc, tmp, **kw: _pseudo_s2_from_envi(
+        sc, tmp, **kw),
+    "pseudo_s2_srf_integral": lambda sc, tmp, **kw:
+        tsrf.pseudo_s2_srf_integral(
+            sc["raw"][:3, :4], sc["wavelengths"],
+            builtin_srf("S2A", bands=["B3"]), **kw)["B3"],
+    "orthorectify": lambda sc, tmp, **kw: tglt.orthorectify(
+        sc["raw"], sc["glt"], **kw),
+    "verify_granule": lambda sc, tmp, **kw: tverify.verify_granule(
+        tmp / "missing.nc", tmp / "missing.tif", tmp / "out", **kw),
 }
+#: entry points whose CPU run needs files this module does not make: the
+#: raise without a card is checked here, the CPU run in its own test file
+NEEDS_FILES = {"verify_granule": "tests/test_torch_verify.py",
+               "fuse_pair(fused)": "tests/test_torch_fuse_pair.py"}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -123,7 +193,8 @@ def test_default_device_raises_without_a_card(name, scene, tmp_path,
         ENTRY_POINTS[name](scene, tmp_path)
 
 
-@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+@pytest.mark.parametrize("name", sorted(set(ENTRY_POINTS)
+                                        - set(NEEDS_FILES)))
 def test_cpu_when_asked(name, scene, tmp_path):
     """The same calls with ``device="cpu"`` run, on the CPU."""
     out = ENTRY_POINTS[name](scene, tmp_path, device="cpu")

@@ -31,6 +31,7 @@ from hyperres_torch.kernels import lstsq as tlstsq  # noqa: E402
 from hyperres_torch.kernels import sinkhorn as tsink  # noqa: E402
 from hyperres_torch.kernels import srf as tsrf  # noqa: E402
 from hyperres_torch.kernels import stats as tstats  # noqa: E402
+from hyperres_torch.kernels.warp import warp_interpolate  # noqa: E402
 from hyperres_torch.spectral.srf_tables import builtin_srf  # noqa: E402
 from hyperres_torch.testing.bench_scene import generate_scene  # noqa: E402
 
@@ -446,22 +447,148 @@ def test_ot_affine_identity_fallback(slice_run, affine_run):
     np.testing.assert_array_equal(out["coeffs"].numpy(), want)
 
 
-def test_plan_rejects_unported_configs(slice_run):
+def _port_statics(jst):
+    """The port's FusionStatics with a reference plan's values."""
+    return tfused.FusionStatics(
+        fusion_method=jst.fusion_method, degree=jst.degree,
+        min_pixels=jst.min_pixels,
+        ot=OTConfig(n_samples=jst.ot.n_samples, reg=jst.ot.reg,
+                    num_itermax=jst.ot.num_itermax, stop_thr=jst.ot.stop_thr,
+                    seed=jst.ot.seed, debias=jst.ot.debias),
+        pmin=jst.pmin, pmax=jst.pmax, emit_nodata=jst.emit_nodata,
+        s2_nodata=jst.s2_nodata,
+        return_intermediates=jst.return_intermediates,
+        lin_min_count=jst.lin_min_count)
+
+
+def _hist_close(a, b):
+    """The histogram match is a step function of its input at the tie
+    groups the stretch's clip makes (~2 % of the pixels at exactly 0 and
+    at exactly 1): 2e-5 for 98 % of the values, PSNR > 60 dB in all."""
+    from hyperres.pipeline import psnr
+
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    assert (np.abs(np.nan_to_num(a) - np.nan_to_num(b)) <= 2e-5).mean() >= 0.98
+    assert psnr(a, b) > 60.0
+
+
+@pytest.mark.parametrize("case", ["linear", "histogram", "box", "taploop",
+                                  "refused"])
+def test_plan_rejects_unported_configs(slice_run, case):
+    """What the plan used to refuse now runs, each against the reference
+    plan from one state (the reference plan's arrays and statics into
+    ``from_state``), and natively built with equal state:
+
+    - ``linear``: the (3, 2) parameters to 2e-5, the products to 5e-5;
+    - ``histogram``: no parameters ((3, 1) zeros), the products to the
+      bound of :func:`_hist_close`;
+    - ``box``: the box weight matrix as ``Wsrf`` (bit-equal to the
+      reference's), with ``linear`` for a deterministic product: 5e-5;
+    - ``taploop``: the reference's ``WarpStatics`` (``warp_kernel``,
+      ``row_chunks``) carried over; utm_cube to 2e-6 where the valid
+      weight mass is >= 0.5 and 2e-4 of max(|v|, 1) elsewhere (a small
+      mass amplifies rounding), the same fill pixels.
+
+    ``refused`` keeps what the reference itself refuses: cross-CRS
+    grids, an unknown fusion or synthesis method, an unknown warp
+    kernel."""
     sc = slice_run["scene"]
-    args = (sc["ortho_grid"], sc["utm60"], sc["s2_grid"],
-            sc["raw"].shape[:2], sc["glt"], sc["wavelengths"])
-    with pytest.raises(tfused.FusedUnsupported):
-        tfused.FusedOrthoFusionPlan(*args, fusion_method="linear",
-                                    device="cpu")
-    with pytest.raises(tfused.FusedUnsupported):
-        tfused.FusedOrthoFusionPlan(*args, fusion_method="histogram",
-                                    device="cpu")
-    with pytest.raises(tfused.FusedUnsupported):
-        tfused.FusedOrthoFusionPlan(*args, warp_kernel="taploop",
-                                    device="cpu")
-    with pytest.raises(tfused.FusedUnsupported):
-        tfused.FusedOrthoFusionPlan(*args, synth_method="box",
-                                    device="cpu")
+    srf = builtin_srf("S2A", bands=["B2", "B3", "B4"])
+    if case == "refused":
+        args = _plan_args(sc)
+        for kw in ({"fusion_method": "spline"}, {"synth_method": "gauss"}):
+            with pytest.raises(tfused.FusedUnsupported):
+                tfused.FusedOrthoFusionPlan(*args, srf=srf, device="cpu",
+                                            **kw)
+            with pytest.raises(Exception) as ei:
+                JaxPlan(*args, srf=srf, **kw)
+            assert type(ei.value).__name__ == "FusedUnsupported"
+        with pytest.raises(ValueError, match="warp_kernel"):
+            tfused.FusedOrthoFusionPlan(*args, srf=srf, device="cpu",
+                                        warp_kernel="gather")
+        other = type(sc["s2_grid"])(
+            type(sc["s2_grid"].crs).utm(32, True), *[
+                getattr(sc["s2_grid"], k) for k in
+                ("x0", "y0", "dx", "dy", "width", "height")])
+        with pytest.raises(tfused.FusedUnsupported, match="same-CRS"):
+            tfused.FusedFusionPlan(sc["utm60"], other, sc["wavelengths"],
+                                   srf=srf, device="cpu")
+        return
+
+    kw = dict(s2_nodata=65535.0, s2_scale=1e-4, srf=srf)
+    method = "histogram" if case == "histogram" else "linear"
+    if case == "taploop":
+        jplan = JaxPlan(*_plan_args(sc), warp_kernel="taploop",
+                        orthowarp_row_chunks=4, fusion_method=method,
+                        **dict(kw, config=JCFG))
+        jw = jplan.warp_statics
+        assert (jw.warp_kernel, jw.row_chunks) == ("taploop", 4)
+        jout = jplan(sc["raw"], slice_run["js2"])
+        tplan = tfused.FusedOrthoFusionPlan.from_state(
+            _jax_state(jplan), _port_statics(jplan.statics), device="cpu",
+            warp_statics=tfused.WarpStatics(jw.resampling, jw.backend,
+                                            jw.warp_kernel, jw.row_chunks),
+            s2_scale=1e-4)
+        native = tfused.FusedOrthoFusionPlan(
+            *_plan_args(sc), warp_kernel="taploop", orthowarp_row_chunks=4,
+            fusion_method=method, device="cpu", **dict(kw, config=CFG))
+        assert native.warp_statics == tplan.warp_statics
+        tout = tplan(sc["raw"], slice_run["ts2"])
+        u, ju = tout["utm_cube"].numpy(), np.asarray(jout["utm_cube"])
+        np.testing.assert_array_equal(u == -9999.0, ju == -9999.0)
+        # the valid weight mass: the validity plane warped as data
+        mass = warp_interpolate(tplan._valid.to(torch.float32)[..., None],
+                                tplan._wr, tplan._wc, method="cubic",
+                                fill=0.0).numpy()
+        ok = ju != -9999.0
+        big = ok & (np.abs(mass) >= 0.5)
+        assert big.sum() > 0.8 * ok.sum()
+        np.testing.assert_allclose(u[big], ju[big], rtol=0, atol=2e-6)
+        err = np.abs(u[ok] - ju[ok]) / np.maximum(np.abs(ju[ok]), 1.0)
+        assert err.max() <= 2e-4
+        base = slice_run["tout"]["utm_cube"].numpy()
+        assert np.abs(u[big] - base[big]).max() < 2e-3   # vs two-pass
+    else:
+        args = (sc["utm60"], sc["s2_grid"], sc["wavelengths"],
+                sc["good_mask"])
+        synth = "box" if case == "box" else "srf"
+        jplan = JaxFusionPlan(*args, fusion_method=method,
+                              synth_method=synth, **dict(kw, config=JCFG))
+        jout = jplan(slice_run["jout"]["utm_cube"], slice_run["js2"])
+        state = {"Wsrf": np.asarray(jplan._Wsrf),
+                 "down_fast": jplan.statics.down_fast,
+                 "up_fast": jplan.statics.up_fast}
+        tplan = tfused.FusedFusionPlan.from_state(
+            state, _port_statics(jplan.statics), device="cpu",
+            s2_scale=1e-4)
+        native = tfused.FusedFusionPlan(
+            *args, fusion_method=method, synth_method=synth, device="cpu",
+            **dict(kw, config=CFG))
+        nstate = native.state_dict_numpy()
+        assert set(nstate) == set(state)
+        np.testing.assert_array_equal(nstate["Wsrf"], state["Wsrf"])
+        assert native.statics == tplan.statics
+        if case == "box":
+            assert np.abs(state["Wsrf"] - np.asarray(
+                slice_run["jplan"]._fusion._Wsrf)).max() > 1e-3
+        tout = tplan(slice_run["jout"]["utm_cube"], slice_run["ts2"])
+    assert int(tout["n_valid_60m"]) == int(jout["n_valid_60m"])
+    fa, fb = tout["fused_10m"].numpy(), np.asarray(jout["fused_10m"])
+    ma, mb = tout["matched_60m"].numpy(), np.asarray(jout["matched_60m"])
+    assert tuple(tout["coeffs"].shape) == np.asarray(jout["coeffs"]).shape
+    if method == "histogram":
+        assert not tout["coeffs"].any() and tout["coeffs"].shape == (3, 1)
+        _hist_close(fa, fb)
+        _hist_close(ma, mb)
+    else:
+        np.testing.assert_allclose(tout["coeffs"].numpy(),
+                                   np.asarray(jout["coeffs"]), rtol=0,
+                                   atol=2e-5)
+        np.testing.assert_array_equal(np.isnan(fa), np.isnan(fb))
+        np.testing.assert_allclose(fa, fb, rtol=0, atol=5e-5,
+                                   equal_nan=True)
+        np.testing.assert_allclose(ma, mb, rtol=0, atol=5e-5,
+                                   equal_nan=True)
 
 
 def test_identity_fallback_below_min_pixels(slice_run):

@@ -57,7 +57,13 @@ def test_port_imports_without_jax():
         for m in ("hyperres_torch.core.config", "hyperres_torch.io.ingest",
                   "hyperres_torch.ortho.pipeline",
                   "hyperres_torch.testing.scenes",
-                  "hyperres_torch.kernels.quantize"):
+                  "hyperres_torch.kernels.quantize",
+                  "hyperres_torch.pipeline", "hyperres_torch.verify",
+                  "hyperres_torch.fusion.histogram",
+                  "hyperres_torch.fusion.linear",
+                  "hyperres_torch.io.xlsx",
+                  "hyperres_torch.spectral.srf_cache",
+                  "hyperres_torch.spectral.synth"):
             assert m in mods, m
         for m in mods + ["chip_smoke"]:
             importlib.import_module(m)

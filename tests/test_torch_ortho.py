@@ -3,8 +3,8 @@ orthorectify_granule``) against the JAX package's on the CPU, end to
 end, on the ``make_scene`` granule (raw 96 x 112 x 285): the ENVI DATA
 cube, the decoded u16 DATA / LOC / OBS GeoTIFFs, the ``info`` ledger and
 the XML sidecar, for the u16 / f32 / u12 transfers and a band-masked
-run; the idempotent skip, the unported branches, and a kernel fault in
-the OBS export. Each configuration runs once per package (module-scoped
+run; the idempotent skip, the tap-loop and two-step branches, and a
+kernel fault in the OBS export. Each configuration runs once per package (module-scoped
 fixtures). The port runs with ``device="cpu"`` (the kernels' plain
 versions)."""
 
@@ -264,20 +264,73 @@ def test_idempotent_skip_and_device_cube(runs, scene):
                     sc.s2_tif_path)
 
 
-@pytest.mark.parametrize("fields,missing", [
-    ({"warp_kernel": "taploop"}, "orthowarp_taploop"),
-    ({"fused_orthowarp": False}, "resample_to_grid"),
-    ({"resampling": "nearest"}, "resample_to_grid"),
+@pytest.mark.parametrize("fields,stages", [
+    ({"warp_kernel": "taploop"}, {"data_streamed_orthowarp"}),
+    ({"fused_orthowarp": False},
+     {"data_stream_ingest", "data_gather", "data_warp"}),
+    ({"resampling": "nearest"},
+     {"data_stream_ingest", "data_gather", "data_warp"}),
+    ({"resampling": "average", "streaming_ingest": False},
+     {"data_gather", "data_warp"}),
 ])
-def test_unported_branches_raise(scene, fields, missing, tmp_path):
-    """The tap-loop warp and the two-step gather + resample_to_grid path
-    are not ported: they raise, naming the module, and never fall back
-    to the two-pass warp."""
+def test_unported_branches_raise(scene, fields, stages, tmp_path):
+    """The branches that used to raise now run, each against the
+    reference's ``orthorectify_granule`` with the same configuration:
+    the tap-loop kernel in the streamed fold, and the two-step
+    ``glt_gather`` + ``resample_to_grid`` path (cubic with
+    ``fused_orthowarp=False``, ``nearest``, and ``average``, which a
+    cross-CRS pair runs as bilinear; with and without the streamed
+    assembly of the raw cube). The ENVI cube: the same fill pixels;
+    ``nearest`` to 1e-7 (a pure gather of the u16 ingest's dequantized
+    values, whose multiply-add rounds once in XLA and twice here); else
+    2e-6 on the 2-px interior of the valid
+    area (the same taps in the same order) and 2e-4 of max(|v|, 1)
+    elsewhere (a small valid weight mass amplifies rounding). The
+    ledger: the same keys and non-timing values, and the stages named
+    here."""
     sc = scene["scene"]
-    with pytest.raises(NotImplementedError, match=missing):
-        t_ortho(sc.emit_nc_path, tmp_path, sc.s2_tif_path,
-                config=OrthoConfig(**fields), device="cpu")
-    assert not (tmp_path / "geotiff").exists()
+    cfg = dict(fields, save_geotiffs=False, write_xml=False)
+    jres = j_ortho(sc.emit_nc_path, tmp_path / "jax", sc.s2_tif_path,
+                   config=JOrthoConfig(**cfg))
+    tres = t_ortho(sc.emit_nc_path, tmp_path / "port", sc.s2_tif_path,
+                   config=OrthoConfig(**cfg), keep_device_cube=True,
+                   device="cpu")
+    assert stages <= set(tres.info["stages"])
+    assert not any("two_pass" in k for k in tres.info["stages"])
+    if "data_streamed_orthowarp" in stages:
+        assert tres.info["stages"]["data_streamed_orthowarp"][
+            "kernel"] == "taploop"
+    dirs = (tmp_path / "jax", tmp_path / "port")
+    _assert_same(_norm(tres.info, dirs), _norm(jres.info, dirs))
+    assert tres.info["out"]["warp_backend"] == "auto"
+    want, got = _cube(jres), _cube(tres)
+    np.testing.assert_array_equal(tres.device_cube.numpy(), got)
+    fill = want == -9999.0
+    np.testing.assert_array_equal(got == -9999.0, fill)
+    assert fill.any() and not fill.all()
+    if fields.get("resampling") == "nearest":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-7)
+        return
+    interior = binary_erosion(~fill.all(-1), iterations=2)[..., None] & ~fill
+    assert interior.sum() > 0.5 * (~fill).sum()
+    np.testing.assert_allclose(got[interior], want[interior], rtol=0,
+                               atol=2e-6)
+    ok = ~fill
+    err = np.abs(got[ok] - want[ok]) / np.maximum(np.abs(want[ok]), 1.0)
+    assert err.max() <= 2e-4
+
+
+def test_band_mask_needs_the_fused_orthowarp(scene, tmp_path):
+    """``apply_band_mask`` with the two-step path is refused, as in the
+    reference (the per-band validity planes ride the fused warp)."""
+    sc = scene["scene"]
+    for fn, cls, kw in ((t_ortho, OrthoConfig, {"device": "cpu"}),
+                        (j_ortho, JOrthoConfig, {})):
+        with pytest.raises(ValueError, match="apply_band_mask"):
+            fn(sc.emit_nc_path, tmp_path / fn.__module__, sc.s2_tif_path,
+               mask_file=scene["mask"],
+               config=cls(apply_band_mask=True, fused_orthowarp=False),
+               **kw)
 
 
 def test_kernel_fault_in_obs_export_propagates(scene, monkeypatch,
