@@ -168,6 +168,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    40 dB (``scripts/torch_verify_gate_spread.py`` takes it apart). Each
    scanline pass must have launched once per chunk of the shipped ortho
    run and never for the exact one.
+13. ``run_pair_pipeline`` (``hyperres_torch.pipeline``) on phase 9's
+   granule with ``coregister=True`` and ``predict_sr_cube=True``, on the
+   default device, with ``OrthoConfig()``, ``PolyFusionConfig()``,
+   ``TilingConfig()``, ``RidgeSRConfig()`` and ``CoregConfig()``, and
+   ``max_tiles=PAIRS_MAX_TILES`` (the one cut: the tile writes are host
+   deflate). Its S2 stack (``shifted_s2_stack``, made after phase 11 from
+   the ortho phase's UTM cube on the stack's 9600 px grid) is shifted by
+   PAIRS_SHIFT px of 10 m. Prints the seconds of each stage and in all,
+   peak device memory, the launches and the card line. Fails unless the
+   coregistration succeeded within PAIRS_SHIFT_TOL px of the shift, the
+   fused product is finite on > PAIRS_FINITE_MIN of its pixels with
+   values in [0, 1], at least one tile was written with a record each
+   and the manifest, the SR fit's ``r2_mean`` > PAIRS_R2_MIN,
+   ``emit_sr_10m.tif`` decodes with one band per SR band on the fused
+   product's grid, ``report.md`` has every section, each scanline pass
+   launched at least ORTHO_CHUNKS times, quantize at least once and the
+   SR kernel exactly once.
 
 Prints the kernels' JSON line (the two banded passes, the dense route,
 ``sinkhorn_duals`` (one pass), ``sinkhorn_duals_long_rows``,
@@ -234,9 +251,9 @@ SR_NODATA = -9999.0
 #: kernel vs plain: the same f32 terms summed in another order move a
 #: value on a rounding edge by one u16 step
 SR_STEPS_TOL = 1
-#: card fit vs CPU fit, predictions: the f32 Gram sums run in another
-#: order on the card (measured 9.7e-6 on an H100; the CPU's f32 fit is
-#: within 9e-7 of an f64 fit of the same data)
+#: card fit vs CPU fit, predictions: the Gram sums run in another order
+#: on the card (measured 9.7e-6 on an H100 when they were f32; the fit
+#: sums and solves in f64 now, the monomials stay f32)
 SR_FIT_TOL = 1e-4
 SR_SOURCE = "hyperres_torch/csrc/sr_predict.cu"
 SR_REPLACES = ("hyperres/kernels/pallas_ops.py:828 "
@@ -354,6 +371,20 @@ SRF_WIDE_ROWS = 200_000
 SRF_WIDE_SHAPES = ((401, 20, "tiled"), (400, 20, "generic"),
                    (244, 13, "warp"))
 SRF_WIDE_RTOL = 3e-6
+#: the pairs phase (13): the shift of its S2 stack in 10 m px (rows,
+#: columns; two and three 60 m px), the bound on the recovered shift
+#: (tests/test_pipeline_e2e.py:99: the EMIT reference carries the GLT's
+#: nearest-neighbour quantization, +-0.5 raw px), the tiles written (the
+#: phase's one cut: host deflate, the card's work is the same) and the
+#: checks of its products
+PAIRS_SHIFT = (12, -18)
+PAIRS_SHIFT_TOL = 1.5
+PAIRS_MAX_TILES = 32
+PAIRS_R2_MIN = 0.8
+PAIRS_FINITE_MIN = 0.3
+PAIRS_SECTIONS = ("Orthorectification", "Coregistration",
+                  "Fusion (OT + poly)", "Tiles", "Spectral SR (ridge)",
+                  "Spectral SR 10 m product", "Timing")
 
 
 #: lines printed once more at the end of the run, just before the
@@ -1441,6 +1472,159 @@ def verify_phase(dev, scene, out_dir) -> None:
                  f"times, expected {ORTHO_CHUNKS}")
 
 
+def shifted_s2_stack(dev, cube, utm_grid, wavelengths, good, s2_tif,
+                     out_tif) -> Path:
+    """The pairs phase's S2 stack, made as tests/test_coreg.py:280 makes
+    the stack of the reference's coregistration check at its calibrated
+    default ``min_reliability``: the EMIT UTM cube (ortho phase)
+    SRF-synthesized to the stack's 10 bands at 60 m and bilinearly
+    upsampled to the stack's 10 m grid (``s2_tif``'s grid, descriptions,
+    nodata 65535), 0 outside the swath; rolled by PAIRS_SHIFT (tgt(r, c)
+    = src(r - dy, c - dx)) with nodata on the rolled-in edges; u16 x 1e4,
+    written uncompressed.
+
+    Why not the stack ``make_scene`` wrote: its world is smooth at the
+    matching windows' 5 km, so no tie point passes CoregConfig()'s
+    reliability gate; the EMIT-derived bands carry the granule's own 60 m
+    texture. Why 0 outside the swath, as in the reference's check: the
+    deshift's cubic weights beside nodata divide by a small mass and
+    write codes near 65534 there, which the SR fit would take for valid
+    inputs. The cube's fill and its cubic overshoot beside the swath's
+    edge (values past [0, 1]) are left out of the upsample."""
+    import torch
+    from hyperres_torch.core.constants import NO_DATA_VALUE
+    from hyperres_torch.io.tiff import TiffReader, write_geotiff
+    from hyperres_torch.kernels.host import build_srf_weight_matrix
+    from hyperres_torch.kernels.warp import resample_tensor_to_grid
+    from hyperres_torch.spectral.srf_tables import builtin_srf
+    from hyperres_torch.testing.scenes import S2_CODE_TO_SHORT
+
+    t0 = time.perf_counter()
+    with TiffReader(s2_tif) as r:
+        grid, descs = r.grid, r.descriptions
+    srf = builtin_srf("S2A")
+    shorts = [S2_CODE_TO_SHORT[str(d).split("_")[0]] for d in descs]
+    W, _, _ = build_srf_weight_matrix(wavelengths, srf, good, bands=shorts)
+    synth = cube @ torch.from_numpy(W).to(dev)
+    bad = ((cube[..., 0] == NO_DATA_VALUE) | (synth < 0.0).any(dim=-1)
+           | (synth > 1.0).any(dim=-1))
+    synth[bad] = NO_DATA_VALUE
+    x = resample_tensor_to_grid(synth, utm_grid, grid, method="bilinear",
+                                nodata=NO_DATA_VALUE, fill=0.0)
+    del synth
+    dy, dx = PAIRS_SHIFT
+    x = torch.roll(x, shifts=(dy, dx), dims=(0, 1))
+    rows = slice(None, dy) if dy > 0 else slice(dy, None)
+    cols = slice(None, dx) if dx > 0 else slice(dx, None)
+    if dy:
+        x[rows] = float("nan")
+    if dx:
+        x[:, cols] = float("nan")
+    q = torch.clamp(torch.round(x * 10000.0), 0.0, 65534.0)
+    q = torch.where(torch.isfinite(x), q.to(torch.int32), 65535)
+    data = q.to(torch.uint16).permute(2, 0, 1).contiguous().cpu().numpy()
+    del x, q
+    write_geotiff(out_tif, data, grid, nodata=65535, descriptions=descs,
+                  compress=None)
+    log(f"pairs: S2 stack {data.shape} u16 from the UTM cube, shifted by "
+        f"{PAIRS_SHIFT} px, {np.mean(data[0] != 65535):.3f} valid, written "
+        f"uncompressed ({Path(out_tif).stat().st_size / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return Path(out_tif)
+
+
+def pairs_phase(dev, scene, s2_tif, out_dir, card_line: str) -> None:
+    """Phase 13 (see the module docstring): ``run_pair_pipeline`` on
+    phase 9's granule and the shifted S2 stack, coregistration and the SR
+    product on, on the default device."""
+    import torch
+    from hyperres_torch.core.config import (
+        CoregConfig, OrthoConfig, PolyFusionConfig, RidgeSRConfig,
+        TilingConfig,
+    )
+    from hyperres_torch.core.grid import Window
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.io.tiff import TiffReader
+    from hyperres_torch.kernels.banded import KERNEL_NAMES
+    from hyperres_torch.kernels.sr_predict import KERNEL_NAME as SR_NAME
+    from hyperres_torch.pipeline import run_pair_pipeline
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_pair_pipeline(
+        scene.emit_nc_path, s2_tif, out_dir, ortho_config=OrthoConfig(),
+        fusion_config=PolyFusionConfig(), tiling_config=TilingConfig(),
+        sr_config=RidgeSRConfig(), coreg_config=CoregConfig(),
+        coregister=True, max_tiles=PAIRS_MAX_TILES, train_sr=True,
+        predict_sr_cube=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    final = res.info["coreg"]["final"]
+    log(f"run_pair_pipeline: {secs:.2f} s (total_seconds "
+        f"{res.info['total_seconds']:.2f}); the one cut: max_tiles="
+        f"{PAIRS_MAX_TILES}", keep=True)
+    log(f"run_pair_pipeline stages (s): {res.info['stages']}", keep=True)
+    log(f"run_pair_pipeline: peak memory {peak_gb:.2f} GB; launches "
+        f"{counts}; {card_line}", keep=True)
+    log(f"run_pair_pipeline coreg: {final}; attempts "
+        f"{len(res.info['coreg']['attempts'])}", keep=True)
+    if not final.get("success"):
+        fail(f"run_pair_pipeline: coregistration failed: "
+             f"{res.info['coreg']}")
+    err = [abs(a - b) for a, b in zip(final["mean_shift_px"], PAIRS_SHIFT)]
+    if not max(err) < PAIRS_SHIFT_TOL:
+        fail(f"run_pair_pipeline: recovered shift {final['mean_shift_px']}, "
+             f"injected {PAIRS_SHIFT} (tol {PAIRS_SHIFT_TOL} px)")
+    fused = res.fusion.fused_10m
+    ok = np.isfinite(fused).all(axis=-1)
+    vals = fused[ok]
+    log(f"run_pair_pipeline fusion: {fused.shape}, finite "
+        f"{ok.mean():.4f}, range [{vals.min():.4f}, {vals.max():.4f}], "
+        f"engine {res.fusion.info['engine']}, stages "
+        f"{res.fusion.info['stages']}", keep=True)
+    if not (ok.mean() > PAIRS_FINITE_MIN and vals.min() >= 0.0
+            and vals.max() <= 1.0):
+        fail("run_pair_pipeline: the fused product fails its checks")
+    m = res.sr_metrics
+    log(f"run_pair_pipeline tiles: {len(res.tiles)} written "
+        f"({len(res.tile_records)} records); SR r2_mean {m['r2_mean']:.4f}, "
+        f"rmse_mean {m['rmse_mean']:.5f}, {m['n_train_pixels']} train px, "
+        f"predict {m['sr_predict_seconds']} s "
+        f"({m['sr_predict_px_per_s']} px/s)", keep=True)
+    if not (res.tiles and len(res.tile_records) == len(res.tiles)
+            and res.run.local_manifest_csv.exists()):
+        fail("run_pair_pipeline: no tiles, or records / manifest missing")
+    if not m["r2_mean"] > PAIRS_R2_MIN:
+        fail(f"run_pair_pipeline: SR r2_mean {m['r2_mean']} <= "
+             f"{PAIRS_R2_MIN}")
+    n_sr = len(m["band_indices"])
+    with TiffReader(m["sr_cube_tif"]) as r:
+        corner = r.read(window=Window(0, 0, min(512, r.width),
+                                      min(512, r.height)))
+        shape = (r.count, r.height, r.width)
+    if not (shape[0] == n_sr and corner.dtype == np.uint16
+            and shape[1:] == fused.shape[:2]):
+        fail(f"emit_sr_10m.tif: {shape} {corner.dtype}, expected "
+             f"({n_sr}, {fused.shape[0]}, {fused.shape[1]}) u16")
+    text = res.report_path.read_text()
+    missing = [h for h in PAIRS_SECTIONS if f"## {h}\n" not in text]
+    if missing:
+        fail(f"report.md lacks the sections {missing}")
+    for name in KERNEL_NAMES.values():
+        if counts.get(name, 0) < ORTHO_CHUNKS:
+            fail(f"run_pair_pipeline: {name} launched {counts.get(name, 0)} "
+                 f"times, expected >= {ORTHO_CHUNKS}")
+    if counts.get(QUANT_NAME, 0) < 1:
+        fail(f"run_pair_pipeline: {QUANT_NAME} never launched")
+    if counts.get(SR_NAME, 0) != 1:
+        fail(f"run_pair_pipeline: {SR_NAME} launched "
+             f"{counts.get(SR_NAME, 0)} times, expected 1")
+
+
 def prefetch_phase(dev) -> None:
     """Phase 2a (see the module docstring)."""
     import torch
@@ -1638,8 +1822,8 @@ def ortho_phase(dev, workdir) -> dict:
     if not (worst_full <= 1.0 and same_fill):
         fail("the u16 ingest departs from the f32 one beyond its bound")
     del ratio, cube16, mass, full
-    return {"cube": cube32, "wavelengths": wl, "good": good,
-            "counts": runs["u16"][1], "scene": scene}
+    return {"cube": cube32, "utm_grid": utm_grid, "wavelengths": wl,
+            "good": good, "counts": runs["u16"][1], "scene": scene}
 
 
 def quantize_phase(cube, launches: int) -> dict:
@@ -2046,13 +2230,21 @@ def main() -> None:
                                  ortho["good"]))
         clock.mark("ortho granule, quantize, SRF")
         scene = ortho.pop("scene")
+        s2_shifted = shifted_s2_stack(
+            dev, ortho["cube"], ortho["utm_grid"], ortho["wavelengths"],
+            ortho["good"], scene.s2_tif_path, Path(d) / "s2_shifted.tif")
         del ortho
         torch.cuda.empty_cache()
         shutil.rmtree(Path(d) / "ortho")   # ~10 GB of products, checked
+        clock.mark("pairs: shifted S2 stack")
         # -- 12. verify_granule on that granule ------------------------------
         verify_phase(dev, scene, Path(d) / "verify")
         clock.mark("verify_granule")
-    log("the parity path's readings, again:")
+        shutil.rmtree(Path(d) / "verify")
+        # -- 13. run_pair_pipeline on that granule ---------------------------
+        pairs_phase(dev, scene, s2_shifted, Path(d) / "pairs", card_line)
+        clock.mark("run_pair_pipeline")
+    log("the parity and pairs paths' readings, again:")
     for line in SUMMARY:
         log(line)
     log(f"chip_smoke phases (s): {clock.spans}")

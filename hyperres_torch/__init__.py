@@ -6,10 +6,11 @@ computes the same things with PyTorch on the CPU or on an NVIDIA H100.
 It imports ``torch``, never ``jax``, and nothing of ``hyperres``: what
 it needs of the reference's framework-neutral modules are port-owned
 copies, each naming its source and held equal to it by the tests —
-``core`` (grids, CRS math, configs, constants), the host I/O of ``io``
-(HDF5 granules, ENVI, GeoTIFF, XML sidecars, xlsx), ``testing.scenes``,
-the SRF tables and cache of ``spectral`` and the NumPy helpers of
-``kernels.host``.
+``core`` (grids, CRS math, configs, constants, cube containers), the
+host I/O of ``io`` (HDF5 granules, ENVI, GeoTIFF, XML sidecars, xlsx),
+``testing.scenes``, the SRF tables and cache of ``spectral``, the NumPy
+helpers of ``kernels.host``, ``artifacts`` (run layout, report,
+metadata, manifest) and ``catalog.s2_stack``.
 
 Ported paths: the fused granule plan (``fusion.fused``: four fusion
 methods, SRF or box synthesis, two-pass or tap-loop warp), the ridge
@@ -20,8 +21,12 @@ export path (``ortho``: streamed u16 / u12 / f32 ingest by band chunks,
 ``io.ingest``, the chunked GLT warp or the two-step gather +
 ``kernels.warp.resample_to_grid``, and the quantized GeoTIFF products),
 the 4-phase fusion by both engines (``pipeline.fuse_pair``), the
-granule parity harness (``verify.verify_granule``) and the SRF sources
-and scene-level synthesis API (``spectral``).
+granule parity harness (``verify.verify_granule``), the SRF sources
+and scene-level synthesis API (``spectral``), and the pairs pipeline
+(``pipeline.run_pair_pipeline``: ortho, coregistration by batched FFT
+phase correlation (``coreg``, ``kernels.phasecorr``), overlap crop,
+fusion, paired tiling (``tiling``), the SR fit and 10 m product, the
+run's artifacts (``artifacts``)).
 
 Hand-written kernels, built with ``nvcc`` at first use
 (``kernels._build``):
@@ -42,7 +47,8 @@ Hand-written kernels, built with ``nvcc`` at first use
 On a CUDA tensor a kernel wrapper launches its kernel or raises; on a
 CPU tensor it runs the kernel's plain PyTorch version. The entry points
 (plans, models, ``fusion``, ``ortho``, ``io.ingest``, ``pipeline``,
-``verify``, ``kernels.warp.resample_to_grid``, ``spectral.synth``) take a
+``verify``, ``kernels.warp.resample_to_grid``, ``spectral.synth``,
+``coreg``, ``kernels.phasecorr``, ``tiling``, ``catalog``) take a
 ``device`` that defaults to the current CUDA device and raise where
 there is none; ``device="cpu"`` asks for the CPU.
 """

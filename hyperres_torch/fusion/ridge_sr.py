@@ -4,10 +4,16 @@ the framework's flagship model, as an ``nn.Module``.
 The sklearn pipeline ``StandardScaler -> PolynomialFeatures(degree, no
 bias) -> Ridge(alpha)`` trained in logit space, with sigmoid inference:
 
-- ``fit``: biased standardisation, the logit target, the weighted Gram
-  system of the monomial features (plain f32 ``torch.matmul``, TF32
-  off), centred so the intercept stays unpenalised, and a Cholesky
-  solve. Closed form, no backward.
+- ``fit``: biased standardisation and the monomial features in f32, the
+  logit target, the weighted Gram system of the features summed and
+  centred in f64 (so the intercept stays unpenalised), and a Cholesky
+  solve in f64; W and the intercept are stored in f32. Closed form, no
+  backward. The reference sums and solves in f32 (``ridge_sr.py:80-110``):
+  on strongly correlated S2 bands over 10^5-10^6 pixels its centred
+  Gram matrix is not positive definite in f32 and its Cholesky returns
+  NaN weights; in f64 the same system is definite (alpha = 1 stands
+  far above f64's rounding of it), and where the reference's solve
+  holds the two agree to f32 rounding.
 - ``forward`` / ``predict`` / ``predict_cube`` / ``evaluate``: plain
   PyTorch.
 - ``predict_cube_u16`` and :func:`sr_predict_u16`: the u16 product and
@@ -22,6 +28,7 @@ bias) -> Ridge(alpha)`` trained in logit space, with sigmoid inference:
 until fitted or loaded); the device is explicit. ``save_params`` /
 ``load_params`` read and write the reference's ``.npz`` checkpoint, so
 a checkpoint crosses between the two packages in either direction.
+:func:`flatten_pixels` builds a training set on the host, in NumPy.
 """
 
 from __future__ import annotations
@@ -46,6 +53,26 @@ from ..kernels.sr_predict import valid_pixels
 DeviceLike = Union[str, torch.device, None]
 ArrayLike = Union[np.ndarray, torch.Tensor]
 ENGINES = ("auto", "pallas", "xla")
+
+
+def flatten_pixels(X_bhw: np.ndarray, Y_bhw: np.ndarray,
+                   x_nodata: Optional[float] = None,
+                   y_nodata: Optional[float] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """(Bx, H, W), (By, H, W) -> (N, Bx), (N, By) keeping only pixels
+    finite in all bands and away from nodata (Spectral_matching cell 5).
+    A host NumPy copy of ``hyperres/fusion/ridge_sr.py:49``, so that a
+    training set is the reference's to the bit."""
+    bx = X_bhw.shape[0]
+    by = Y_bhw.shape[0]
+    X = X_bhw.reshape(bx, -1).T
+    Y = Y_bhw.reshape(by, -1).T
+    mask = np.isfinite(X).all(axis=1) & np.isfinite(Y).all(axis=1)
+    if x_nodata is not None:
+        mask &= ~np.isclose(X, x_nodata).any(axis=1)
+    if y_nodata is not None:
+        mask &= ~np.isclose(Y, y_nodata).any(axis=1)
+    return X[mask], Y[mask]
 
 
 def predict_quant_batches(model: "RidgeSpectralSR", X: torch.Tensor,
@@ -139,11 +166,14 @@ class RidgeSpectralSR(nn.Module):
     # ---- training ----
 
     def _gram_terms(self, X, Y_logit, weights, x_mean, x_std):
-        """Weighted Gram pieces for the centred ridge system."""
-        F = self.expand((X - x_mean) / x_std)
+        """Weighted Gram pieces for the centred ridge system, in f64 from
+        the f32 features (see the module docstring)."""
+        F = self.expand((X - x_mean) / x_std).double()
+        Y_logit = Y_logit.double()
         if weights is None:
-            weights = torch.ones(X.shape[0], dtype=torch.float32,
+            weights = torch.ones(X.shape[0], dtype=torch.float64,
                                  device=X.device)
+        weights = weights.double()
         Fw = F * weights[:, None]
         n = torch.sum(weights)
         f_sum = torch.sum(Fw, dim=0)
@@ -183,7 +213,7 @@ class RidgeSpectralSR(nn.Module):
         terms = self._gram_terms(X, Y_logit, w, x_mean, x_std)
         W, intercept = self._solve_from_gram(*terms, self.cfg.alpha)
         self.x_mean, self.x_std, self.W, self.intercept = (
-            x_mean, x_std, W, intercept)
+            x_mean, x_std, W.float(), intercept.float())
         return self
 
     # ---- inference ----

@@ -17,7 +17,9 @@ torch = pytest.importorskip("torch")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from hyperres_torch import device as tdevice  # noqa: E402
-from hyperres_torch.core.config import OTConfig, RidgeSRConfig  # noqa: E402
+from hyperres_torch.core.config import (  # noqa: E402
+    CoregConfig, OTConfig, RidgeSRConfig,
+)
 from hyperres_torch.entry import entry  # noqa: E402
 from hyperres_torch.fusion import fused as tfused  # noqa: E402
 from hyperres_torch.fusion import ot as tot  # noqa: E402
@@ -38,6 +40,11 @@ from hyperres_torch.ortho.pipeline import orthorectify_granule  # noqa: E402
 from hyperres_torch.spectral import synth as tsynth  # noqa: E402
 from hyperres_torch.spectral.srf_tables import builtin_srf  # noqa: E402
 from hyperres_torch.testing.bench_scene import generate_scene  # noqa: E402
+from hyperres_torch.catalog import s2_stack as ts2  # noqa: E402
+from hyperres_torch.coreg import granule as tcoreg  # noqa: E402
+from hyperres_torch.coreg import local as tlocal  # noqa: E402
+from hyperres_torch.kernels import phasecorr as tpc  # noqa: E402
+from hyperres_torch.tiling import tiles as ttiles  # noqa: E402
 
 OT = OTConfig(n_samples=200, num_itermax=20)
 
@@ -130,6 +137,32 @@ def _pseudo_s2_from_envi(scene, tmp, **kw):
                                       **kw)[0]["B2"]
 
 
+def _windows():
+    rng = np.random.default_rng(8)
+    ref = rng.random((2, 32, 32)).astype(np.float32)
+    return ref, np.roll(ref, (1, 2), axis=(1, 2))
+
+
+def _coreg_local(**kw):
+    ref, tgt = _windows()
+    cfg = CoregConfig(window_size=(32, 32), grid_res=16,
+                      min_reliability=0.0)
+    return tlocal.coregister_local(ref[0], tgt[0], config=cfg, **kw)
+
+
+def _deshift(**kw):
+    res = tlocal.CoregResult(True, None, affine=np.array(
+        [[0.0, 0.0, 0.5], [0.0, 0.0, -1.0]]))
+    return tlocal.deshift(_windows()[0], res, **kw)
+
+
+def _tiles(**kw):
+    rng = np.random.default_rng(9)
+    return ttiles.find_valid_paired_tiles(
+        rng.random((3, 8, 8)), rng.random((2, 24, 24)), emit_tile_size=4,
+        scale=3, **kw)
+
+
 #: every entry point, called with the keyword arguments it is given
 ENTRY_POINTS = {
     "resolve_device": lambda sc, tmp, **kw: tdevice.resolve_device(
@@ -177,11 +210,32 @@ ENTRY_POINTS = {
         sc["raw"], sc["glt"], **kw),
     "verify_granule": lambda sc, tmp, **kw: tverify.verify_granule(
         tmp / "missing.nc", tmp / "missing.tif", tmp / "out", **kw),
+    "phase_correlate_batch": lambda sc, tmp, **kw:
+        tpc.phase_correlate_batch(*_windows(), **kw)[0],
+    "estimate_shift": lambda sc, tmp, **kw: tpc.estimate_shift(
+        *(w[0] for w in _windows()), **kw),
+    "coregister_local": lambda sc, tmp, **kw: _coreg_local(**kw),
+    "deshift": lambda sc, tmp, **kw: _deshift(**kw),
+    "coregister_s2_to_emit": lambda sc, tmp, **kw:
+        tcoreg.coregister_s2_to_emit(
+            emit_ref_tif=tmp / "missing.tif", s2_tgt_tif=tmp / "m.tif",
+            emit_nc_path=tmp / "missing.nc", out_s2_tif=tmp / "o.tif", **kw),
+    "find_valid_paired_tiles": lambda sc, tmp, **kw: _tiles(**kw),
+    "save_tile_pair": lambda sc, tmp, **kw: ttiles.save_tile_pair(
+        tmp / "missing.tif", tmp / "m.tif", {"idx": 0}, tmp / "t", **kw),
+    "build_s2_spectral_stack": lambda sc, tmp, **kw:
+        ts2.build_s2_spectral_stack({}, tmp / "stack.tif", **kw),
+    "run_pair_pipeline": lambda sc, tmp, **kw: tfuse.run_pair_pipeline(
+        tmp / "missing.nc", tmp / "missing.tif", tmp / "out", **kw),
 }
 #: entry points whose CPU run needs files this module does not make: the
 #: raise without a card is checked here, the CPU run in its own test file
 NEEDS_FILES = {"verify_granule": "tests/test_torch_verify.py",
-               "fuse_pair(fused)": "tests/test_torch_fuse_pair.py"}
+               "fuse_pair(fused)": "tests/test_torch_fuse_pair.py",
+               "coregister_s2_to_emit": "tests/test_torch_coreg.py",
+               "save_tile_pair": "tests/test_torch_tiling.py",
+               "build_s2_spectral_stack": "tests/test_torch_artifacts.py",
+               "run_pair_pipeline": "tests/test_torch_pair_pipeline.py"}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))

@@ -63,7 +63,12 @@ def test_port_imports_without_jax():
                   "hyperres_torch.fusion.linear",
                   "hyperres_torch.io.xlsx",
                   "hyperres_torch.spectral.srf_cache",
-                  "hyperres_torch.spectral.synth"):
+                  "hyperres_torch.spectral.synth",
+                  "hyperres_torch.coreg.granule",
+                  "hyperres_torch.kernels.phasecorr",
+                  "hyperres_torch.tiling.tiles",
+                  "hyperres_torch.artifacts.metadata",
+                  "hyperres_torch.catalog.s2_stack"):
             assert m in mods, m
         for m in mods + ["chip_smoke"]:
             importlib.import_module(m)
