@@ -185,6 +185,41 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    product's grid, ``report.md`` has every section, each scanline pass
    launched at least ORTHO_CHUNKS times, quantize at least once and the
    SR kernel exactly once.
+14. Multi-device (``hyperres_torch.parallel``) on meshes of logical
+   shards on the card, each op timed (host clock around a synchronise,
+   peak memory) beside its single-device counterpart on the same inputs:
+   on phase 9's granule, ``sharded_orthowarp_two_pass`` (n shards, n the
+   first of PAR_SHARDS dividing the GLT grid's and the UTM grid's
+   heights, else the first dividing the UTM grid's with the GLT padded by
+   invalid scanlines to a multiple of it, for both warps; the smallest halo that passes; Ho, the pad, n and the
+   halo printed) against ``orthowarp_two_pass``, n launches of each pass;
+   ``sharded_orthowarp_srf_2d`` on an n x PAR_BAND_SHARDS mesh against
+   that warp times the S2A SRF weights (``torch.matmul``), within
+   PAR_SRF_TOL of max(|v|, 1); ``sharded_streamed_orthowarp`` (u16,
+   PAR_CHUNK_BANDS-band chunks) against the ortho path's single-device
+   fold of the same granule; both warps within PAR_WARP_TOL (expected
+   bit-equal). Then ``sharded_sr_predict_u16(engine="pallas")`` on
+   PAR_SR_SHARDS shards of the SR product's (85,084,260, 10) pixels
+   (seeded, a nodata stripe) with the product's model: one SR kernel
+   launch per shard, the codes bit-equal to one row-major kernel call;
+   ``sharded_histogram_percentile`` at PAR_QS on one 10 m band of the
+   bench scene (PAR_STAT_SHARDS shards) within 2 * range / 2048 of the
+   exact ``masked_percentile``; ``data_parallel_ridge_fit`` on
+   PAR_FIT_PX seeded pixels (PAR_STAT_SHARDS shards), W within
+   PAR_FIT_TOL of ``RidgeSpectralSR.fit``'s.
+15. ``BatchPairDriver.run(jobs, devices=[cuda:0] * BATCH_WORKERS)`` on
+   three ``make_scene`` pairs cut to BATCH_RAW x 285 bands (S2 BATCH_S2
+   px; each job is ``run_pair_pipeline``, which phase 13 runs at full
+   width): every pair ``done`` on the card, two pipelines overlapping in
+   wall clock, each scanline pass launched for every pair; a second run
+   runs nothing (resume); with a fourth job whose granule is missing,
+   that one ``failed`` after two recorded attempts, the rest ``done``.
+16. ``python -m hyperres_torch`` in subprocesses on the card: ``scene``
+   (CLI_SCENE), then ``ortho``, ``fuse``, ``batch``, ``verify-granule``,
+   ``info`` and ``quicklook`` in parallel: each exits 0 (or
+   ``verify-granule`` 1 with ``passed`` false), ``scene`` to
+   ``verify-granule`` print JSON that parses, ``info`` names the raster,
+   ``quicklook`` prints the viewer it wrote.
 
 Prints the kernels' JSON line (the two banded passes, the dense route,
 ``sinkhorn_duals`` (one pass), ``sinkhorn_duals_long_rows``,
@@ -385,6 +420,36 @@ PAIRS_FINITE_MIN = 0.3
 PAIRS_SECTIONS = ("Orthorectification", "Coregistration",
                   "Fusion (OT + poly)", "Tiles", "Spectral SR (ridge)",
                   "Spectral SR 10 m product", "Timing")
+#: the multi-device phase (14), every mesh of logical shards on the one
+#: card: the two-pass warps' shard count is the first of PAR_SHARDS that
+#: divides both the GLT grid's and the destination's heights; if none
+#: divides the GLT grid's, the first that divides the destination's, and
+#: the GLT grid's scanlines are padded with invalid ones to a multiple of
+#: it (for the sharded and the single-device warp alike). The 2-D mesh adds PAR_BAND_SHARDS band shards (285 = 5 x 57).
+PAR_SHARDS = (3, 2, 4, 6)
+PAR_BAND_SHARDS = 5
+PAR_SR_SHARDS = 3
+PAR_STAT_SHARDS = 4
+PAR_CHUNK_BANDS = 32
+#: sharded vs single-device warps (the shards do the same f32 arithmetic:
+#: expected 0); the 2-D mesh's SRF product, whose band psum adds in
+#: another order, relative to max(|v|, 1) (renormalised values beside the
+#: swath's edge exceed 1); the data-parallel fit's W (f64 terms)
+PAR_WARP_TOL = 1e-5
+PAR_SRF_TOL = 1e-4
+PAR_FIT_TOL = 1e-6
+PAR_FIT_PX = 1_600_000
+PAR_QS = (2.0, 50.0, 98.0)
+#: the batch phase (15): three make_scene pairs cut to this raw size, all
+#: 285 bands, on two worker threads on the card; tiles of 32 px
+BATCH_RAW = (192, 200)
+BATCH_S2 = 1200
+BATCH_WORKERS = 2
+BATCH_TILE = 32
+#: the CLI phase (16): the scene subcommand's defaults (make_scene's demo
+#: size), then the other subcommands in parallel processes
+CLI_SCENE = ("--raw", "96", "112", "--bands", "64", "--s2-size", "420")
+CLI_TIMEOUT = 300
 
 
 #: lines printed once more at the end of the run, just before the
@@ -1625,6 +1690,367 @@ def pairs_phase(dev, scene, s2_tif, out_dir, card_line: str) -> None:
              f"{counts.get(SR_NAME, 0)} times, expected 1")
 
 
+def timed(dev, fn, warm: bool = True):
+    """(result, host seconds around ``fn()`` and a synchronise, peak
+    device GB during it); with ``warm`` after one untimed call (the
+    first call of an op grows the allocator's pool)."""
+    import torch
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def counted(dev, fn, warm: bool = True):
+    """``timed`` with the launch counts of the timed call: (result,
+    seconds, peak GB, counts)."""
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+
+    if warm:
+        fn()
+    reset_launch_counts()
+    out, secs, peak = timed(dev, fn, warm=False)
+    return out, secs, peak, dict(launch_counts)
+
+
+def parallel_phase(dev, scene, utm_grid, s2_band, card_line: str) -> None:
+    """Phase 14 (see the module docstring): the sharded ops of
+    ``hyperres_torch.parallel`` on meshes of logical shards on the card,
+    each against its single-device counterpart on the same inputs, both
+    timed after a warm-up call (the streamed folds, host-bound, once)."""
+    import torch
+    from hyperres_torch.core.config import RidgeSRConfig
+    from hyperres_torch.core.constants import NO_DATA_VALUE
+    from hyperres_torch.fusion.ridge_sr import RidgeSpectralSR
+    from hyperres_torch.io.granule import EmitGranule
+    from hyperres_torch.io.ingest import stream_cube_fold
+    from hyperres_torch.kernels import sr_predict as sp
+    from hyperres_torch.kernels.banded import KERNEL_NAMES
+    from hyperres_torch.kernels.host import (
+        build_srf_weight_matrix, prepare_glt, scanline_cstar,
+        source_index_field,
+    )
+    from hyperres_torch.kernels.stats import masked_percentile
+    from hyperres_torch.kernels.warp import orthowarp_two_pass
+    from hyperres_torch.ortho.pipeline import _warp_chunk_update
+    from hyperres_torch.parallel import (
+        data_parallel_ridge_fit, make_mesh, sharded_histogram_percentile,
+        sharded_orthowarp_srf_2d, sharded_orthowarp_two_pass,
+        sharded_streamed_orthowarp,
+    )
+    from hyperres_torch.parallel.ops import (
+        min_two_pass_halo, sharded_sr_predict_u16,
+    )
+    from hyperres_torch.spectral.srf_tables import builtin_srf
+
+    p1, p2 = KERNEL_NAMES[1], KERNEL_NAMES[0]
+
+    def mesh(*shape, names=("data",)):
+        return make_mesh(shape, names, devices=[dev] * int(np.prod(shape)))
+
+    def report(label, secs, peak, single_s, extra=""):
+        log(f"{label}: sharded {secs:.3f} s (peak {peak:.2f} GB), single "
+            f"device {single_s:.3f} s{extra}; {card_line}", keep=True)
+
+    def expect(label, counts, want):
+        if counts != want:
+            fail(f"{label}: launches {counts}, expected {want}")
+
+    g = EmitGranule(scene.emit_nc_path)
+    shape = (g.raw_height, g.raw_width, g.n_bands)
+    raw = torch.from_numpy(g.read_cube()).to(dev)
+    flat, valid = prepare_glt(g.glt, shape[:2])
+    rows, cols = source_index_field(g.ortho_grid, utm_grid)
+    ho, hd = flat.shape[0], rows.shape[0]
+    n = next((k for k in PAR_SHARDS if ho % k == 0 and hd % k == 0), None)
+    pad = 0
+    if n is None:
+        n = next(k for k in PAR_SHARDS if hd % k == 0)
+        pad = -ho % n
+        flat = np.pad(flat, ((0, pad), (0, 0)))
+        valid = np.pad(valid, ((0, pad), (0, 0)))
+    ho_p = ho + pad
+    halo = min_two_pass_halo(rows, ho_p, n)
+    cstar = scanline_cstar(rows, cols, ho_p)
+    flat, valid, rows, cols, cstar = (torch.from_numpy(a).to(dev) for a in
+                                      (flat, valid, rows, cols, cstar))
+    log(f"parallel: GLT grid Ho = {ho} ({ho_p} after {pad} invalid "
+        f"scanlines), destination {hd}x{rows.shape[1]}, n = {n} shards, the "
+        f"smallest halo that passes {halo}", keep=True)
+
+    # the two-pass warp, one shot
+    m1 = mesh(n)
+    got, secs, peak, counts = counted(dev, lambda: sharded_orthowarp_two_pass(
+        raw, flat, valid, rows, cols, cstar, m1, halo=halo))
+    expect("sharded_orthowarp_two_pass", counts, {p1: n, p2: n})
+    want, single_s, _ = timed(dev, lambda: orthowarp_two_pass(
+        raw, flat, valid, rows, cols, cstar))
+    err = float((got - want).abs().max())
+    report(f"sharded_orthowarp_two_pass {tuple(got.shape)}", secs, peak,
+           single_s, f", max abs diff {err:.3e} (tol {PAR_WARP_TOL:g}), "
+           f"bit-equal {bool(torch.equal(got, want))}, launches {counts}")
+    if not err <= PAR_WARP_TOL:
+        fail("the sharded two-pass warp departs from the single-device one")
+    del got
+
+    # the 2-D (row x band) mesh: the warp and the SRF product
+    W, _, _ = build_srf_weight_matrix(np.asarray(g.wavelengths),
+                                      builtin_srf("S2A"), g.good_wavelengths)
+    Wt = torch.from_numpy(np.ascontiguousarray(W, np.float32)).to(dev)
+    m2 = mesh(n, PAR_BAND_SHARDS, names=("row", "band"))
+    got, secs, peak, counts = counted(dev, lambda: sharded_orthowarp_srf_2d(
+        raw, flat, valid, rows, cols, cstar, Wt, m2, halo=halo))
+    k = n * PAR_BAND_SHARDS
+    expect("sharded_orthowarp_srf_2d", counts, {p1: k, p2: k})
+    ref, single_s, _ = timed(dev, lambda: (orthowarp_two_pass(
+        raw, flat, valid, rows, cols, cstar).reshape(-1, shape[2]) @ Wt)
+        .reshape(got.shape))
+    d = (got - ref).abs()
+    rel = float((d / ref.abs().clamp(min=1.0)).max())
+    report(f"sharded_orthowarp_srf_2d {n}x{PAR_BAND_SHARDS} -> "
+           f"{tuple(got.shape)}", secs, peak, single_s,
+           f" (the warp and torch.matmul), max abs diff "
+           f"{float(d.max()):.3e}, {rel:.3e} of max(|v|, 1) (tol "
+           f"{PAR_SRF_TOL:g}), launches {counts}")
+    if not rel <= PAR_SRF_TOL:
+        fail("the 2-D mesh's synthesis departs from warp + matmul")
+    del got, ref, d, want, raw
+    torch.cuda.empty_cache()
+
+    # the streamed fold (u16), sharded and on one device
+    got, secs, peak, counts = counted(dev, lambda: sharded_streamed_orthowarp(
+        g.read_bands, shape, flat, valid, rows, cols, cstar, m1, halo=halo,
+        transfer="u16", chunk_bands=PAR_CHUNK_BANDS, depth=3), warm=False)
+    chunks = -(-shape[2] // PAR_CHUNK_BANDS)
+    expect("sharded_streamed_orthowarp", counts,
+           {p1: n * chunks, p2: n * chunks})
+
+    def single_fold():
+        utm0 = torch.full(tuple(rows.shape) + (shape[2],), NO_DATA_VALUE,
+                          dtype=torch.float32, device=dev)
+        return stream_cube_fold(
+            g.read_bands, shape, lambda u, p, b0: _warp_chunk_update(
+                u, p, b0, flat, valid, rows, cols, cstar, "cubic", "u16",
+                "auto"), utm0, transfer="u16", chunk_bands=PAR_CHUNK_BANDS,
+            depth=3, payload_mode=True, device=dev)
+
+    want, single_s, _ = timed(dev, single_fold, warm=False)
+    err = float((got - want).abs().max())
+    report(f"sharded_streamed_orthowarp (u16, {chunks} chunks)", secs, peak,
+           single_s, f", max abs diff {err:.3e} (tol {PAR_WARP_TOL:g}), "
+           f"bit-equal {bool(torch.equal(got, want))}, launches {counts}")
+    if not err <= PAR_WARP_TOL:
+        fail("the sharded streamed fold departs from the single-device one")
+    del got, want, flat, valid, rows, cols, cstar
+    g.close()
+    torch.cuda.empty_cache()
+
+    # SR serving on the product's model: 3 shards, one kernel launch each
+    Xt, Yt = sr_training_data(np.random.default_rng(0))
+    model = RidgeSpectralSR(SR_BX, SR_BY, RidgeSRConfig(degree=SR_DEGREE),
+                            device=dev).fit(Xt, Yt)
+    n_px = SR_SHAPE[1] * SR_SHAPE[2]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    X = torch.rand((n_px, SR_BX), generator=gen, device=dev)
+    ok = torch.ones(n_px, dtype=torch.bool, device=dev)
+    ok[:n_px // 20] = False
+    m3 = mesh(PAR_SR_SHARDS)
+    got, secs, peak, counts = counted(dev, lambda: sharded_sr_predict_u16(
+        model, X, ok, m3, engine="pallas"))
+    expect("sharded_sr_predict_u16", counts, {sp.KERNEL_NAME: PAR_SR_SHARDS})
+    want, single_s, _ = timed(dev, lambda: sp.sr_predict_u16(
+        X, model.x_mean, model.x_std, model.W, model.intercept,
+        model.factors, layout="rowmajor", valid=ok))
+    bad = n_differ(got, want)
+    report(f"sharded_sr_predict_u16 (engine='pallas', {n_px} px x "
+           f"{SR_BX} -> {SR_BY})", secs, peak, single_s,
+           f", {bad} codes differ (bit-equal required), launches {counts}")
+    if bad:
+        fail("the sharded SR codes differ from one kernel call's")
+    del got, want, X, ok, model
+
+    # the distributed percentile on one 10 m S2 band
+    x = torch.from_numpy(s2_band.astype(np.float32)).to(dev)
+    mask = x > 0
+    m4 = mesh(PAR_STAT_SHARDS)
+    got, secs, peak = timed(dev, lambda: sharded_histogram_percentile(
+        x, mask, PAR_QS, m4))
+    want, single_s, _ = timed(dev, lambda: masked_percentile(x, mask,
+                                                             PAR_QS))
+    span = float(x[mask].max() - x[mask].min())
+    err = float((got.cpu() - want.cpu()).abs().max())
+    report(f"sharded_histogram_percentile q {PAR_QS} on {tuple(x.shape)} "
+           f"u16 px", secs, peak, single_s,
+           f" (exact masked_percentile), {got.tolist()} vs {want.tolist()}, "
+           f"max abs err {err:.4f} (bound 2 * range / 2048 = "
+           f"{2 * span / 2048:.4f})")
+    if not err < 2 * span / 2048:
+        fail("the sharded percentile misses its bound")
+    del x, mask
+
+    # the data-parallel fit against the single-device fit
+    Xf, Yf = sr_training_data(np.random.default_rng(1), PAR_FIT_PX)
+    cfg = RidgeSRConfig(degree=SR_DEGREE)
+    multi, secs, peak = timed(dev, lambda: data_parallel_ridge_fit(
+        RidgeSpectralSR(SR_BX, SR_BY, cfg, device=dev), Xf, Yf, m4))
+    single, single_s, _ = timed(dev, lambda: RidgeSpectralSR(
+        SR_BX, SR_BY, cfg, device=dev).fit(Xf, Yf))
+    err = float((multi.W - single.W).abs().max())
+    report(f"data_parallel_ridge_fit ({PAR_FIT_PX} px, {PAR_STAT_SHARDS} "
+           f"shards, F = {single.n_features})", secs, peak, single_s,
+           f", W max abs diff {err:.3e} (tol {PAR_FIT_TOL:g})")
+    if not err <= PAR_FIT_TOL:
+        fail("the data-parallel fit departs from the single-device fit")
+
+
+def batch_phase(dev, workdir: Path, card_line: str) -> None:
+    """Phase 15 (see the module docstring): ``BatchPairDriver`` over three
+    reduced ``make_scene`` pairs on two worker threads on the card."""
+    import torch
+    from hyperres_torch.batch import BatchPairDriver, PairJob
+    from hyperres_torch.core.config import TilingConfig
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.kernels.banded import KERNEL_NAMES
+    from hyperres_torch.testing.scenes import make_scene
+
+    t0 = time.perf_counter()
+    scenes = [make_scene(workdir / f"scene{i}", raw_shape=BATCH_RAW,
+                         n_bands=ORTHO_BANDS, s2_size=BATCH_S2, seed=i,
+                         compress_granule=False) for i in range(3)]
+    log(f"batch: 3 scenes {BATCH_RAW + (ORTHO_BANDS,)}, S2 {BATCH_S2} px, "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    jobs = [PairJob(f"pair{i}", str(s.emit_nc_path), str(s.s2_tif_path))
+            for i, s in enumerate(scenes)]
+    driver = BatchPairDriver(workdir / "out", tiling_config=TilingConfig(
+        emit_tile_size=BATCH_TILE, max_black_frac=0.5))
+    base, spans = driver.runner, {}
+
+    def tracking(job, pair_dir):
+        t = time.perf_counter()
+        out = base(job, pair_dir)
+        spans[job.pair_id] = (t, time.perf_counter())
+        return out
+
+    driver.runner = tracking
+    devices = [dev] * BATCH_WORKERS
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    manifest = driver.run(jobs, devices=devices)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    ids = sorted(spans)
+    overlap = max([min(spans[a][1], spans[b][1]) - max(spans[a][0],
+                                                       spans[b][0])
+                   for i, a in enumerate(ids) for b in ids[i + 1:]],
+                  default=0.0)
+    status = {k: v["status"] for k, v in manifest.items()}
+    used = {a["device"] for v in manifest.values() for a in v["attempts"]}
+    log(f"batch: {len(jobs)} pairs on {BATCH_WORKERS} workers in {secs:.2f} "
+        f"s; pipeline seconds {[round(s[1] - s[0], 2) for s in spans.values()]}"
+        f"; longest overlap of two {overlap:.2f} s; statuses {status}; "
+        f"devices {sorted(used)}; launches {counts}; {card_line}", keep=True)
+    if set(status.values()) != {"done"} or overlap <= 0.0:
+        fail("batch: a pair is not done, or no two pipelines overlapped")
+    if used != {str(dev)}:
+        fail(f"batch: attempts recorded devices {used}, expected {dev}")
+    for name in KERNEL_NAMES.values():
+        if counts.get(name, 0) < len(jobs):
+            fail(f"batch: {name} launched {counts.get(name, 0)} times for "
+                 f"{len(jobs)} pairs")
+    # resume: nothing runs again
+    calls = []
+    driver.runner = lambda job, d: calls.append(job.pair_id) or {}
+    driver.run(jobs, devices=devices)
+    # a job whose granule is missing fails after its retries, the rest stay
+    missing = PairJob("missing", str(workdir / "nope.nc"),
+                      str(scenes[0].s2_tif_path))
+    driver.runner = base
+    manifest = driver.run(jobs + [missing], devices=devices)
+    status = {k: v["status"] for k, v in manifest.items()}
+    tries = [a["attempt"] for a in manifest["missing"]["attempts"]]
+    log(f"batch: resume ran {calls}; with a missing granule: statuses "
+        f"{status}, its attempts {tries}, error "
+        f"{manifest['missing']['attempts'][-1]['error']!r}", keep=True)
+    if calls or status != {"pair0": "done", "pair1": "done", "pair2": "done",
+                           "missing": "failed"} or tries != [1, 2]:
+        fail("batch: resume ran a pair again, or the missing granule was not "
+             "recorded as failed after two attempts")
+
+
+def cli_phase(workdir: Path, card_line: str) -> None:
+    """Phase 16 (see the module docstring): ``python -m hyperres_torch``
+    subcommands in subprocesses on the card."""
+    import os
+
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+
+    def start(*argv):
+        return subprocess.Popen(
+            [sys.executable, "-m", "hyperres_torch", *argv], cwd=repo,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    def finish(name, proc):
+        try:
+            out, err = proc.communicate(timeout=CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"cli {name}: no exit within {CLI_TIMEOUT} s")
+        return proc.returncode, out, err
+
+    t0 = time.perf_counter()
+    sc = workdir / "scene"
+    rc, out, err = finish("scene", start("scene", str(sc), *CLI_SCENE))
+    if rc != 0:
+        fail(f"cli scene: exit {rc}: {err[-2000:]}")
+    doc = json.loads(out)
+    nc, s2 = doc["emit_nc"], doc["s2_tif"]
+    jobs = workdir / "jobs.json"
+    jobs.write_text(json.dumps([{"pair_id": "p1", "emit_nc_path": nc,
+                                 "s2_stack_tif": s2}]))
+    procs = {
+        "ortho": start("ortho", nc, str(workdir / "ortho"), "--s2", s2),
+        "fuse": start("fuse", nc, s2, str(workdir / "fuse"), "--tile-size",
+                      "16", "--max-tiles", "2"),
+        "batch": start("batch", str(jobs), str(workdir / "batch")),
+        "verify-granule": start("verify-granule", nc, s2,
+                                str(workdir / "verify")),
+        "info": start("info", s2),
+        "quicklook": start("quicklook", nc, str(workdir / "q.html")),
+    }
+    results = {name: finish(name, p) for name, p in procs.items()}
+    secs = time.perf_counter() - t0
+    for name, (rc, out, err) in results.items():
+        if name == "info":
+            ok = rc == 0 and Path(s2).name in out
+        elif name == "quicklook":
+            ok = rc == 0 and Path(out.strip()).exists()
+        else:
+            try:
+                doc = json.loads(out)
+            except json.JSONDecodeError:
+                fail(f"cli {name}: stdout is not JSON (exit {rc}): "
+                     f"{out[-500:]} {err[-2000:]}")
+            ok = rc == 0 or (name == "verify-granule" and rc == 1
+                             and doc["passed"] is False)
+        log(f"cli {name}: exit {rc}", keep=False)
+        if not ok:
+            fail(f"cli {name}: exit {rc}: {out[-500:]} {err[-2000:]}")
+    log(f"cli: scene, then ortho, fuse, batch, verify-granule, info and "
+        f"quicklook in parallel processes on the card: {secs:.1f} s, exit "
+        f"codes {[r[0] for r in results.values()]}; {card_line}", keep=True)
+
+
 def prefetch_phase(dev) -> None:
     """Phase 2a (see the module docstring)."""
     import torch
@@ -2102,6 +2528,7 @@ def main() -> None:
     t0 = time.perf_counter()
     scene = generate_scene(MAIN_SCALE, 0)
     t_scene = time.perf_counter() - t0
+    s2_band = scene["s2_dn"][0].copy()   # phase 14's percentile input
     t0 = time.perf_counter()
     plan = build_plan(scene, dev)
     t_plan = time.perf_counter() - t0
@@ -2230,6 +2657,7 @@ def main() -> None:
                                  ortho["good"]))
         clock.mark("ortho granule, quantize, SRF")
         scene = ortho.pop("scene")
+        utm_grid = ortho["utm_grid"]
         s2_shifted = shifted_s2_stack(
             dev, ortho["cube"], ortho["utm_grid"], ortho["wavelengths"],
             ortho["good"], scene.s2_tif_path, Path(d) / "s2_shifted.tif")
@@ -2244,7 +2672,21 @@ def main() -> None:
         # -- 13. run_pair_pipeline on that granule ---------------------------
         pairs_phase(dev, scene, s2_shifted, Path(d) / "pairs", card_line)
         clock.mark("run_pair_pipeline")
-    log("the parity and pairs paths' readings, again:")
+        shutil.rmtree(Path(d) / "pairs")
+        torch.cuda.empty_cache()
+        # -- 14. the sharded ops on meshes of logical shards ----------------
+        parallel_phase(dev, scene, utm_grid, s2_band, card_line)
+        del s2_band
+        torch.cuda.empty_cache()
+        clock.mark("multi-device")
+        # -- 15. the batch driver on two worker threads ----------------------
+        batch_phase(dev, Path(d) / "batch", card_line)
+        clock.mark("batch")
+        # -- 16. the command line --------------------------------------------
+        cli_phase(Path(d) / "cli", card_line)
+        clock.mark("cli")
+    log("the parity, pairs, multi-device, batch and CLI paths' readings, "
+        "again:")
     for line in SUMMARY:
         log(line)
     log(f"chip_smoke phases (s): {clock.spans}")

@@ -26,7 +26,11 @@ and scene-level synthesis API (``spectral``), and the pairs pipeline
 (``pipeline.run_pair_pipeline``: ortho, coregistration by batched FFT
 phase correlation (``coreg``, ``kernels.phasecorr``), overlap crop,
 fusion, paired tiling (``tiling``), the SR fit and 10 m product, the
-run's artifacts (``artifacts``)).
+run's artifacts (``artifacts``)), the batch driver over many pairs
+(``batch``: resume, retries, one worker thread per device), the sharded
+ops on a single-process device mesh (``parallel``: n shards on one card
+or on n cards), the command line (``python -m hyperres_torch``, ``cli``)
+and host-only copies of the quicklooks and HTML viewer (``viz``).
 
 Hand-written kernels, built with ``nvcc`` at first use
 (``kernels._build``):
@@ -50,7 +54,9 @@ CPU tensor it runs the kernel's plain PyTorch version. The entry points
 ``verify``, ``kernels.warp.resample_to_grid``, ``spectral.synth``,
 ``coreg``, ``kernels.phasecorr``, ``tiling``, ``catalog``) take a
 ``device`` that defaults to the current CUDA device and raise where
-there is none; ``device="cpu"`` asks for the CPU.
+there is none; ``device="cpu"`` asks for the CPU. So do
+``parallel.make_mesh`` (its ``devices``), ``BatchPairDriver.run`` (its
+``devices``) and the command line (``--device``).
 """
 
 from . import device  # noqa: F401  (sets the f32 precision policy)

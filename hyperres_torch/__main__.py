@@ -1,0 +1,8 @@
+"""``python -m hyperres_torch``: the command-line interface (:mod:`.cli`)."""
+
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,10 +4,13 @@ the framework's flagship model, as an ``nn.Module``.
 The sklearn pipeline ``StandardScaler -> PolynomialFeatures(degree, no
 bias) -> Ridge(alpha)`` trained in logit space, with sigmoid inference:
 
-- ``fit``: biased standardisation and the monomial features in f32, the
-  logit target, the weighted Gram system of the features summed and
-  centred in f64 (so the intercept stays unpenalised), and a Cholesky
-  solve in f64; W and the intercept are stored in f32. Closed form, no
+- ``fit``: biased standardisation (its mean and spread summed in f64,
+  stored in f32) and the monomial features in f32, the logit target,
+  the weighted Gram system of the features summed and centred in f64
+  (so the intercept stays unpenalised), and a Cholesky solve in f64; W
+  and the intercept are stored in f32. Every sum is split into row
+  terms that add across shards (``parallel.data_parallel_ridge_fit``
+  psums them), so a sharded fit equals the single-device one. Closed form, no
   backward. The reference sums and solves in f32 (``ridge_sr.py:80-110``):
   on strongly correlated S2 bands over 10^5-10^6 pixels its centred
   Gram matrix is not positive definite in f32 and its Cholesky returns
@@ -73,6 +76,31 @@ def flatten_pixels(X_bhw: np.ndarray, Y_bhw: np.ndarray,
     if y_nodata is not None:
         mask &= ~np.isclose(Y, y_nodata).any(axis=1)
     return X[mask], Y[mask]
+
+
+def weighted_sums(X: torch.Tensor, w: Optional[torch.Tensor]):
+    """(n, sum of w X over the rows) in f64: the first pass of the fit's
+    standardisation (``w`` None weighs every row 1)."""
+    if w is None:
+        return (torch.tensor(float(X.shape[0]), dtype=torch.float64,
+                             device=X.device), X.double().sum(dim=0))
+    wd = w.double()
+    return wd.sum(), (X.double() * wd[:, None]).sum(dim=0)
+
+
+def weighted_spread(X: torch.Tensor, w: Optional[torch.Tensor],
+                    x_mean: torch.Tensor) -> torch.Tensor:
+    """sum of w (X - x_mean)^2 over the rows in f64, ``x_mean`` the f32
+    mean: the second pass of the fit's standardisation."""
+    d = (X.double() - x_mean.double()) ** 2
+    return (d if w is None else d * w.double()[:, None]).sum(dim=0)
+
+
+def standard_deviation(n: torch.Tensor, spread: torch.Tensor
+                       ) -> torch.Tensor:
+    """The biased standard deviation (sklearn's StandardScaler) from the
+    f64 sums, in f32 plus 1e-12."""
+    return torch.sqrt(spread / n).float() + 1e-12
 
 
 def predict_quant_batches(model: "RidgeSpectralSR", X: torch.Tensor,
@@ -201,14 +229,9 @@ class RidgeSpectralSR(nn.Module):
         X = self._as_f32(X)
         Y = self._as_f32(Y)
         w = None if weights is None else self._as_f32(weights)
-        if w is None:
-            x_mean = X.mean(dim=0)
-            x_std = X.std(dim=0, correction=0) + 1e-12  # like StandardScaler
-        else:
-            n = torch.sum(w)
-            x_mean = torch.sum(X * w[:, None], dim=0) / n
-            x_std = torch.sqrt(torch.sum(w[:, None] * (X - x_mean) ** 2,
-                                         dim=0) / n) + 1e-12
+        n, x_sum = weighted_sums(X, w)
+        x_mean = (x_sum / n).float()
+        x_std = standard_deviation(n, weighted_spread(X, w, x_mean))
         Y_logit = logit(Y, eps=self.cfg.logit_eps)
         terms = self._gram_terms(X, Y_logit, w, x_mean, x_std)
         W, intercept = self._solve_from_gram(*terms, self.cfg.alpha)

@@ -11,8 +11,10 @@
 - Multivariate monomial expansion (``:166``) as ``degree`` gathered
   column products, over the factor table of
   :func:`~hyperres_torch.kernels.host.poly_factor_indices`.
-- The ridge solve (``:192``), the logit / sigmoid pair (``:251-260``)
-  and the per-band R^2 / RMSE (``:231``) of the spectral-SR model.
+- The ridge solve (``:192``) and the centred ridge fit with an
+  unpenalised intercept (``:201``), the logit / sigmoid pair
+  (``:251-260``) and the per-band R^2 / RMSE (``:231``) of the
+  spectral-SR model.
 """
 
 from __future__ import annotations
@@ -175,6 +177,29 @@ def ridge_solve(XtX: torch.Tensor, XtY: torch.Tensor,
     A = XtX + alpha * torch.eye(k, dtype=XtX.dtype, device=XtX.device)
     L = torch.linalg.cholesky(A)
     return torch.cholesky_solve(XtY, L)
+
+
+def ridge_fit_centered(F: torch.Tensor, Y: torch.Tensor, alpha: float,
+                       sample_weight: Optional[torch.Tensor] = None):
+    """Ridge with an unpenalised intercept (sklearn Ridge semantics,
+    ``lstsq.py:201``): centre the features and targets (weighted by
+    ``sample_weight``), solve the penalised normal equations in f32,
+    recover the intercept. Returns (W (F, T), intercept (T,), f_mean
+    (F,), y_mean (T,))."""
+    if sample_weight is not None:
+        w = sample_weight.to(F.dtype)[:, None]
+        n = torch.sum(w)
+        f_mean = torch.sum(F * w, dim=0) / n
+        y_mean = torch.sum(Y * w, dim=0) / n
+        Fc = (F - f_mean) * torch.sqrt(w)
+        Yc = (Y - y_mean) * torch.sqrt(w)
+    else:
+        f_mean = torch.mean(F, dim=0)
+        y_mean = torch.mean(Y, dim=0)
+        Fc = F - f_mean
+        Yc = Y - y_mean
+    W = ridge_solve(Fc.T @ Fc, Fc.T @ Yc, alpha)
+    return W, y_mean - f_mean @ W, f_mean, y_mean
 
 
 def r2_rmse_per_band(y_true: torch.Tensor, y_pred: torch.Tensor,

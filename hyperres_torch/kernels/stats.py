@@ -1,6 +1,8 @@
 """Masked percentiles and stretches, min / max, binary erosion, the
 cube PSNR / SAM metrics, the u16 quantizers and the OBS range estimator
-(``hyperres/kernels/stats.py``).
+(``hyperres/kernels/stats.py``), and the two fixed-shape percentile
+estimators the reference keeps for sharded data (histogram and bracket
+refinement).
 
 The reference finds its order statistics with a 32-step bit search
 (it works around the TPU sort's code size). Here they come from
@@ -71,15 +73,129 @@ def masked_percentile_channels(img: torch.Tensor, mask: torch.Tensor,
     return out
 
 
+#: ``shared_percentile_stretch`` methods, by the reference's names
+STRETCH_METHODS = ("bitsearch", "sort", "bracket")
+
+
 def shared_percentile_stretch(img: torch.Tensor, mask: torch.Tensor,
-                              pmin: float = 2.0, pmax: float = 98.0
-                              ) -> torch.Tensor:
+                              pmin: float = 2.0, pmax: float = 98.0,
+                              method: str = "bitsearch") -> torch.Tensor:
     """Per-channel [pmin, pmax] percentile stretch within ``mask``,
-    clipped to [0, 1] (``stats.py:230``). img (H, W, C)."""
+    clipped to [0, 1] (``stats.py:230``). img (H, W, C).
+
+    ``method``: ``"bitsearch"`` and ``"sort"`` are the reference's two
+    exact order-statistic routes; both take the exact sort path here.
+    ``"bracket"`` estimates each channel's percentiles with
+    :func:`bracket_percentile`."""
+    if method not in STRETCH_METHODS:
+        raise ValueError(f"method must be one of {STRETCH_METHODS}, got "
+                         f"{method!r}")
+    if method == "bracket":
+        qs = [pmin, pmax]
+        return torch.stack(
+            [_stretch(img[..., c], *bracket_percentile(img[..., c], mask, qs))
+             for c in range(img.shape[-1])], dim=-1)
     lohi = torch.as_tensor(masked_percentile_channels(img, mask,
                                                       [pmin, pmax]),
                            device=img.device)  # (C, 2)
     return _stretch(img, lohi[:, 0], lohi[:, 1])
+
+
+def histogram_counts(vals: torch.Tensor, lo: float, hi: float,
+                     nbins: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One refinement round of :func:`histogram_percentile` over the
+    valid values ``vals`` (1-D): the (nbins,) int64 histogram of the
+    values in [lo, hi], binned as the reference bins them (f32
+    ``(v - lo) / width * nbins`` truncated and clipped), and the int64
+    count below ``lo``. Exact integer counts, so shards add up exactly."""
+    width = float(max(np.float32(hi) - np.float32(lo), np.float32(1e-30)))
+    inside = (vals >= lo) & (vals <= hi)
+    idx = ((vals[inside] - lo) / width * nbins).to(torch.int32)
+    hist = torch.bincount(idx.clamp_(0, nbins - 1), minlength=nbins)
+    return hist, (vals < lo).sum()
+
+
+def refine_histogram_brackets(counts, n: int, glo: float, ghi: float,
+                              qs: Sequence[float], nbins: int, iters: int
+                              ) -> np.ndarray:
+    """The host side of :func:`histogram_percentile`: for each q, ``iters``
+    rounds that narrow [lo, hi] to the bin holding the q-th percentile's
+    rank, in the reference's f32 arithmetic (``stats.py:152-185``).
+    ``counts(lo, hi)`` returns the (histogram, below) pair of one round
+    over all the data (:func:`histogram_counts`, summed over shards).
+    Returns (Q,) float32 bracket midpoints."""
+    f32 = np.float32
+    out = np.empty(len(qs), np.float32)
+    for k, q in enumerate(qs):
+        target = f32(q) / f32(100.0) * f32(n)
+        lo, hi = f32(glo), f32(ghi)
+        for _ in range(iters):
+            width = np.maximum(hi - lo, f32(1e-30))
+            hist, below = counts(float(lo), float(hi))
+            cdf = int(below) + np.cumsum(hist.cpu().numpy())
+            b = int(np.clip(np.searchsorted(cdf, np.float64(target)),
+                            0, nbins - 1))
+            lo, hi = (lo + f32(b) / f32(nbins) * width,
+                      lo + f32(b + 1) / f32(nbins) * width)
+        out[k] = (lo + hi) / f32(2.0)
+    return out
+
+
+def histogram_percentile(x: torch.Tensor, mask: torch.Tensor,
+                         qs: Sequence[float], nbins: int = 2048,
+                         iters: int = 2) -> torch.Tensor:
+    """Percentiles of ``x[mask]`` by iterative histogram refinement
+    (``stats.py:152``): each percentile narrows its own bracket ``iters``
+    times to one of ``nbins`` bins, ~range / nbins**iters accurate; the
+    bracket's midpoint is returned. The histograms are exact integer
+    counts (the reference sums f32 weights, exact below 2**24 values per
+    bin); the bracket arithmetic is the reference's f32. The reference
+    computes this outside any Pallas kernel; here it is plain tensor
+    ops. Returns (Q,) float32 on x's device."""
+    vals = x.reshape(-1)[mask.reshape(-1)]
+    n = vals.numel()
+    glo = float(vals.min()) if n else float("inf")
+    ghi = float(vals.max()) if n else float("-inf")
+    out = refine_histogram_brackets(
+        lambda lo, hi: histogram_counts(vals, lo, hi, nbins), n, glo, ghi,
+        qs, nbins, iters)
+    return torch.as_tensor(out, device=x.device)
+
+
+def bracket_percentile(x: torch.Tensor, mask: torch.Tensor,
+                       qs: Sequence[float], edges: int = 128,
+                       iters: int = 3) -> torch.Tensor:
+    """Percentiles of ``x[mask]`` by bracket refinement (``stats.py:188``):
+    each round splits every percentile's bracket into ``edges`` spans
+    and keeps the span whose count of values below its edges first
+    passes the target rank, ~range / edges**iters accurate. The counts
+    below the edges come from one ``bucketize`` and a cumulative
+    ``bincount`` (the reference compares every value with every edge);
+    the bracket arithmetic is the reference's f32. NaN for an empty
+    mask. Returns (Q,) float32 on x's device."""
+    vals = x.reshape(-1)[mask.reshape(-1)]
+    dev = x.device
+    n = torch.tensor(float(vals.numel()), device=dev)
+    big = torch.tensor(float("inf"), device=dev)
+    glo = vals.min() if vals.numel() else big
+    ghi = vals.max() if vals.numel() else -big
+    grid = torch.arange(1, edges, dtype=torch.float32, device=dev) / edges
+    out = []
+    for q in qs:
+        target = torch.tensor(q, dtype=torch.float32, device=dev) / 100.0 * n
+        lo, hi = glo, ghi
+        for _ in range(iters):
+            width = torch.clamp(hi - lo, min=1e-30)
+            e = lo + width * grid                          # (E-1,)
+            below = torch.bincount(torch.bucketize(vals, e, right=True),
+                                   minlength=edges)
+            counts = torch.cumsum(below, 0)[:edges - 1].to(torch.float32)
+            idx = (counts <= target).sum().to(torch.float32)
+            lo, hi = (lo + idx / edges * width,
+                      lo + (idx + 1.0) / edges * width)
+        out.append((lo + hi) / 2.0)
+    res = torch.stack(out)
+    return torch.where(n > 0, res, torch.full_like(res, float("nan")))
 
 
 def masked_percentile(x: torch.Tensor, mask: torch.Tensor,

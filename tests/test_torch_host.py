@@ -68,7 +68,12 @@ def test_port_imports_without_jax():
                   "hyperres_torch.kernels.phasecorr",
                   "hyperres_torch.tiling.tiles",
                   "hyperres_torch.artifacts.metadata",
-                  "hyperres_torch.catalog.s2_stack"):
+                  "hyperres_torch.catalog.s2_stack",
+                  "hyperres_torch.parallel.mesh",
+                  "hyperres_torch.parallel.ops", "hyperres_torch.batch",
+                  "hyperres_torch.cli", "hyperres_torch.__main__",
+                  "hyperres_torch.viz.quicklook",
+                  "hyperres_torch.viz.interactive"):
             assert m in mods, m
         for m in mods + ["chip_smoke"]:
             importlib.import_module(m)
