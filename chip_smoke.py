@@ -220,8 +220,34 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ``verify-granule`` 1 with ``passed`` false), ``scene`` to
    ``verify-granule`` print JSON that parses, ``info`` names the raster,
    ``quicklook`` prints the viewer it wrote.
+17. The granule toolkit and pair discovery. (a) ``ortho.toolkit`` on
+   phase 9's granule and a second full-width ``make_scene`` granule
+   (seed TOOLKIT_SEED, its swath centre TOOLKIT_SHIFT_M metres away, so
+   the footprints overlap in part): ``merge_emit`` on the card, cold
+   then warm (host seconds around a synchronise, peak memory, the
+   mosaic's shape, GB, valid share and the share the second granule
+   filled; it launches no hand-written kernel: the GLT gather and the
+   nearest placement are tensor ops), two runs equal, and the mosaic
+   ``array_equal`` to ``merge_emit(device="cpu")`` with the same grid;
+   ``spatial_subset`` of the first granule over a box of about half its
+   footprint, whose ortho on the card must equal the full ortho's crop
+   on every valid cell; ``ortho_browse`` of a u8 RGB, equal to the
+   card's gather. (b) ``catalog.discover_pairs`` on the host over
+   canned responses written to disk: CATALOG_DATES dates of EMIT
+   granules (two a date, UMM polygons of the first granule's swath),
+   Sentinel-2 items on the MGRS tile grid that holds the swath (whole
+   tile every 5 days, partial strips from two other orbits), each
+   full-tile acquisition with a 5490 x 5490 u8 SCL raster (tiled
+   CATALOG_BLOCK px, deflate); every fetch through the clients' injected
+   ``fetch_json`` / ``download`` and ``open_remote_scl``'s
+   ``fetch_range``, reading those files (no ``requests``, no socket).
+   The pairs kept must be those that whole-file ``TiffReader`` counts of
+   each SCL over the overlap say (counted in a thread beside the call),
+   and each ranged read must equal the whole read; prints the seconds
+   and the bytes fetched against the files' sizes.
 
-Prints the kernels' JSON line (the two banded passes, the dense route,
+Prints the seconds of each phase (``clock.spans``), then the kernels'
+JSON line (the two banded passes, the dense route,
 ``sinkhorn_duals`` (one pass), ``sinkhorn_duals_long_rows``,
 ``sr_predict_u16``, ``sr_predict_u16_streamed``, ``quantize_u16``,
 ``srf_synthesize``; each with its launches, error, times, its bound on
@@ -239,6 +265,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -450,6 +477,33 @@ BATCH_TILE = 32
 #: size), then the other subcommands in parallel processes
 CLI_SCENE = ("--raw", "96", "112", "--bands", "64", "--s2-size", "420")
 CLI_TIMEOUT = 300
+#: the toolkit phase (17a): a second full-width make_scene granule, its
+#: swath centre TOOLKIT_SHIFT_M (x, y) metres from phase 9's (about half a
+#: scene along the track, as consecutive EMIT scenes overlap), its own
+#: small S2 stack (unused); the subset polygon's half sides, as fractions
+#: of the ortho grid's extent; the CPU run that the card's mosaic is held
+#: to, at full width while it takes at most TOOLKIT_CPU_LIMIT_S
+TOOLKIT_SEED = 3
+TOOLKIT_SHIFT_M = (9000.0, -42000.0)
+TOOLKIT_S2_PX = 120
+TOOLKIT_SUBSET_HALF = 0.29
+TOOLKIT_CPU_LIMIT_S = 90.0
+#: the catalog phase (17b): CATALOG_DATES dates of EMIT granules, two a
+#: date, over phase 9's scene; Sentinel-2 L2A items on the 20 m MGRS tile
+#: grid that holds it (5490 x 5490 SCL rasters, tiled 512 px, deflate):
+#: the whole tile every 5 days, partial strips of the tile from two other
+#: orbits (each in two processing baselines) between; S2 at 10:00 UTC; on
+#: CATALOG_MATCH_DAYS the least cloudy EMIT granule lies within the
+#: time-of-day window (each such day costs one SCL count per full-tile
+#: acquisition within the days window, ~23 s each on the card's host, so
+#: one day with two), and CATALOG_CLOUD sets the cloud share of each
+#: full-tile acquisition's SCL
+CATALOG_DATES = 30
+CATALOG_TILE = (399960.0, 5800020.0, 20.0, 5490)
+CATALOG_MATCH_DAYS = (13,)
+CATALOG_CLOUD = {0: 0.2, 5: 0.45, 10: 0.62, 15: 0.31, 20: 0.15, 25: 0.74,
+                 30: 0.56}
+CATALOG_BLOCK = 512
 
 
 #: lines printed once more at the end of the run, just before the
@@ -2051,6 +2105,386 @@ def cli_phase(workdir: Path, card_line: str) -> None:
         f"codes {[r[0] for r in results.values()]}; {card_line}", keep=True)
 
 
+def toolkit_phase(dev, scene, workdir: Path, card_line: str) -> None:
+    """Phase 17a (see the module docstring): the granule toolkit at full
+    width on phase 9's granule and a second, partly overlapping one."""
+    import dataclasses
+
+    import torch
+    from hyperres_torch.catalog.geometry import LonLatPolygon
+    from hyperres_torch.core.constants import GLT_NODATA_VALUE, NO_DATA_VALUE
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.io.granule import EmitGranule
+    from hyperres_torch.kernels.glt import orthorectify
+    from hyperres_torch.kernels.warp import resample_tensor_to_grid
+    from hyperres_torch.ortho.toolkit import (
+        merge_emit, ortho_browse, spatial_subset,
+    )
+    from hyperres_torch.testing.scenes import make_scene
+
+    t0 = time.perf_counter()
+    cx, cy = scene.swath_center_utm
+    half = TOOLKIT_S2_PX * 10.0 / 2.0
+    scene2 = make_scene(
+        workdir / "scene2", raw_shape=ORTHO_RAW, n_bands=ORTHO_BANDS,
+        compress_granule=False, s2_size=TOOLKIT_S2_PX, seed=TOOLKIT_SEED,
+        s2_origin=(cx + TOOLKIT_SHIFT_M[0] - half,
+                   cy + TOOLKIT_SHIFT_M[1] + half))
+    log(f"toolkit: second granule {ORTHO_RAW + (ORTHO_BANDS,)} (seed "
+        f"{TOOLKIT_SEED}, swath centre {TOOLKIT_SHIFT_M} m from the first) "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    with EmitGranule(scene.emit_nc_path) as g1, \
+            EmitGranule(scene2.emit_nc_path) as g2:
+        gs = [g1, g2]
+        # -- merge_emit on the card, cold then warm --------------------------
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        (mosaic, grid), cold, _ = timed(dev, lambda: merge_emit(gs),
+                                        warm=False)
+        (again, _), warm, peak = timed(dev, lambda: merge_emit(gs),
+                                       warm=False)
+        counts = dict(launch_counts)
+        valid = mosaic[..., 0] != NO_DATA_VALUE
+        # the first granule's cells, placed as merge_emit places them:
+        # the mosaic's other valid cells are the second granule's
+        band0 = orthorectify(g1.read_bands(0, 1), g1.glt, device=dev)
+        first = (resample_tensor_to_grid(
+            band0, g1.ortho_grid, grid, method="nearest",
+            nodata=NO_DATA_VALUE, fill=NO_DATA_VALUE)[..., 0]
+            != NO_DATA_VALUE).cpu().numpy()
+        del band0
+        share2 = float((valid & ~first).mean())
+        log(f"toolkit: merge_emit of 2 granules on the card: cold "
+            f"{cold:.3f} s, warm {warm:.3f} s (host reads included; "
+            f"synchronised), peak {peak:.2f} GB; mosaic {mosaic.shape} "
+            f"{mosaic.dtype} ({mosaic.nbytes / 1e9:.2f} GB) at "
+            f"{grid.dx:.3e} x {grid.dy:.3e} deg; valid {valid.mean():.4f}, "
+            f"filled by the second granule {share2:.4f}; launches "
+            f"{counts}; {card_line}", keep=True)
+        if not np.array_equal(mosaic, again):
+            fail("toolkit: two merge_emit runs on the card differ")
+        del again
+        if mosaic.shape != (grid.height, grid.width, ORTHO_BANDS) or not (
+                valid.mean() > 0.3 and share2 > 0.05):
+            fail("toolkit: the mosaic's shape or coverage is wrong")
+        t0 = time.perf_counter()
+        cpu, cgrid = merge_emit(gs, device="cpu")
+        secs = time.perf_counter() - t0
+        same = bool(np.array_equal(mosaic, cpu))
+        log(f"toolkit: merge_emit(device='cpu') on the same granules "
+            f"{secs:.3f} s; array_equal to the card's {same}, same grid "
+            f"{dataclasses.astuple(cgrid) == dataclasses.astuple(grid)}",
+            keep=True)
+        if secs > TOOLKIT_CPU_LIMIT_S:
+            log(f"toolkit: the CPU run took over {TOOLKIT_CPU_LIMIT_S} s")
+        if not same or dataclasses.astuple(cgrid) != dataclasses.astuple(
+                grid):
+            fail("toolkit: the card's mosaic differs from the CPU run's")
+        del cpu, mosaic, valid, first
+
+        # -- spatial_subset over about half the footprint --------------------
+        og = g1.ortho_grid
+        le, b, r, t = og.bounds
+        mx, my = (le + r) / 2, (b + t) / 2
+        hx, hy = (r - le) * TOOLKIT_SUBSET_HALF, (t - b) * TOOLKIT_SUBSET_HALF
+        poly = LonLatPolygon.from_bounds(mx - hx, my - hy, mx + hx, my + hy)
+        t0 = time.perf_counter()
+        sub = spatial_subset(g1, poly)
+        t_sub = time.perf_counter() - t0
+        xs, ys = og.pixel_center_coords()
+        lon, lat = np.meshgrid(xs, ys)
+        gvalid = np.all(g1.glt != GLT_NODATA_VALUE, axis=-1)
+        share = float((gvalid & poly.contains_points(lon, lat)).sum()
+                      / gvalid.sum())
+        full = orthorectify(g1.read_cube(), g1.glt, device=dev)
+        t0 = time.perf_counter()
+        so = orthorectify(sub.data, sub.glt, device=dev)
+        torch.cuda.synchronize()
+        t_so = time.perf_counter() - t0
+        oy0 = round((og.y0 - sub.ortho_grid.y0) / og.dy)
+        ox0 = round((sub.ortho_grid.x0 - og.x0) / og.dx)
+        crop = full[oy0:oy0 + sub.ortho_grid.height,
+                    ox0:ox0 + sub.ortho_grid.width]
+        ok = so[..., 0] != NO_DATA_VALUE
+        equal = bool(torch.equal(so[ok], crop[ok]))
+        log(f"toolkit: spatial_subset over {share:.4f} of the footprint: "
+            f"{t_sub:.3f} s, raw window {sub.raw_window}, data "
+            f"{sub.data.shape}, ortho grid {sub.ortho_grid.height}x"
+            f"{sub.ortho_grid.width}; its ortho on the card {t_so:.3f} s "
+            f"equals the full ortho's crop on all {int(ok.sum())} valid "
+            f"cells: {equal}", keep=True)
+        if not (equal and 0.3 < share < 0.7 and int(ok.sum()) > 0):
+            fail("toolkit: the subset's ortho differs from the full ortho's "
+                 "crop, or the polygon misses half the footprint")
+        del full, so, crop, ok, sub
+
+        # -- ortho_browse of a u8 RGB ----------------------------------------
+        wl = np.asarray(g1.wavelengths)
+        idx = [int(np.argmin(np.abs(wl - w))) for w in (650.0, 560.0, 470.0)]
+        rgb = np.concatenate([g1.read_bands(i, i + 1) for i in idx], axis=-1)
+        rgb = np.clip(rgb / 0.4 * 255.0, 0, 255).astype(np.uint8)
+        t0 = time.perf_counter()
+        browse = ortho_browse(rgb, g1.glt)
+        t_b = time.perf_counter() - t0
+        want = orthorectify(rgb.astype(np.float32), g1.glt, fill_value=0.0,
+                            device=dev).clamp(0, 255).to(torch.uint8)
+        same = bool(np.array_equal(browse, want.cpu().numpy()))
+        log(f"toolkit: ortho_browse of a u8 RGB {rgb.shape}: {t_b:.3f} s, "
+            f"{browse.shape} {browse.dtype}, equal to the card's gather "
+            f"{same}")
+        if not same or browse.dtype != np.uint8:
+            fail("toolkit: ortho_browse differs from the card's gather")
+    torch.cuda.empty_cache()
+
+
+def catalog_setup(scene, workdir: Path) -> dict:
+    """Phase 17b's set-up (see the module docstring), host only: the
+    canned CMR pages and STAC items, the SCL rasters, and what the
+    whole-file counts say of each SCL. ``main`` runs it in a thread
+    beside phase 17a; ``catalog_phase`` takes its result."""
+    import datetime as dt
+
+    from hyperres_torch.catalog import (
+        LonLatPolygon, emit_geom_wgs84_from_umm, overlap_emit_fraction,
+    )
+    from hyperres_torch.core.constants import SCL_CLOUD_CLASSES
+    from hyperres_torch.core.grid import Grid
+    from hyperres_torch.io.tiff import TiffReader, write_geotiff
+
+    t_all = time.perf_counter()
+    utm = scene.utm_crs
+    x0, y0, res, n = CATALOG_TILE
+    tile = Grid(utm, x0, y0, res, res, n, n)
+    t0_day = dt.datetime(2023, 6, 1, tzinfo=dt.timezone.utc)
+
+    def iso(d):
+        return d.isoformat().replace("+00:00", "Z")
+
+    def lonlat(xs, ys):
+        lon, lat = utm.to_geographic(np.asarray(xs), np.asarray(ys))
+        return [[float(a), float(b)] for a, b in zip(lon, lat)]
+
+    # EMIT footprint: the raw swath's corners, as a UMM GPolygon
+    h, w = ORTHO_RAW
+    rx, ry = scene.raw_pixel_utm(np.array([0, 0, h - 1, h - 1]),
+                                 np.array([0, w - 1, w - 1, 0]))
+    ring = lonlat(rx, ry)
+    ring.append(ring[0])
+    umm_geo = {"HorizontalSpatialDomain": {"Geometry": {"GPolygons": [{
+        "Boundary": {"Points": [{"Longitude": a, "Latitude": b}
+                                for a, b in ring]}}]}}}
+    rng = np.random.default_rng(17)
+    emit_items = []
+    for day in range(1, CATALOG_DATES + 1):
+        for k in range(2):
+            if day in CATALOG_MATCH_DAYS and k == 0:
+                hour = 9.0 + rng.random()          # in the ToD window
+            else:
+                hour = 12.5 + 8.0 * rng.random()   # out of it
+            begin = t0_day + dt.timedelta(days=day, hours=hour)
+            emit_items.append({
+                "meta": {"native-id": f"EMIT_{day:02d}_{k}"},
+                "umm": {"GranuleUR": f"EMIT_{day:02d}_{k}",
+                        "CloudCover": float(10 + 40 * k + rng.integers(0, 9)),
+                        "TemporalExtent": {"RangeDateTime": {
+                            "BeginningDateTime": iso(begin)}},
+                        "SpatialExtent": umm_geo}})
+
+    def tile_item(item_id, day, xa, xb, scl_day):
+        xs = [x0 + xa * n * res, x0 + xb * n * res]
+        c = lonlat([xs[0], xs[1], xs[1], xs[0]],
+                   [y0, y0, y0 - n * res, y0 - n * res])
+        lons, lats = [p[0] for p in c], [p[1] for p in c]
+        return {"id": item_id,
+                "properties": {"datetime": iso(t0_day + dt.timedelta(
+                    days=day, hours=10)), "eo:cloud_cover": 30.0},
+                "bbox": [min(lons), min(lats), max(lons), max(lats)],
+                "geometry": {"type": "Polygon", "coordinates": [c + [c[0]]]},
+                "assets": {"scl": {"href": f"canned://scl/{scl_day:02d}.tif"},
+                           "scl-jp2": {"href": f"canned://jp2/{item_id}"}}}
+
+    s2_items = []
+    for day in range(0, CATALOG_DATES + 4):
+        if day % 5 == 0:
+            s2_items.append(tile_item(f"S2_T33_{day:02d}_full", day, 0.0,
+                                      1.0, day))
+        elif day % 5 in (2, 4):   # partial strips, two baselines each
+            xa, xb = (0.0, 0.4) if day % 5 == 2 else (0.6, 1.0)
+            for base in (0, 1):
+                s2_items.append(tile_item(f"S2_T33_{day:02d}_strip_{base}",
+                                          day, xa, xb, 5 * (day // 5)))
+    cat = workdir / "canned"
+    (cat / "cmr").mkdir(parents=True)
+    (cat / "scl").mkdir()
+    (cat / "cmr" / "page_1.json").write_text(json.dumps(
+        {"items": emit_items}))
+    (cat / "stac_items.json").write_text(json.dumps(s2_items))
+
+    # SCL rasters of the full-tile acquisitions: land classes per pixel,
+    # clouds in 640 m cells at each acquisition's share, a nodata corner
+    t0 = time.perf_counter()
+    cells = -(-n // 32)
+    land_of = np.repeat(np.array([4, 5, 6, 7], np.uint8), [55, 25, 10, 10])
+    ii = np.arange(n)
+    corner = (ii[:, None] + (n - ii)[None, :]) < n // 8
+    scl_paths = {}
+    for day, frac in CATALOG_CLOUD.items():
+        r = np.random.default_rng(day)
+        cloud = np.where(r.random((cells, cells)) < frac,
+                         r.integers(8, 11, (cells, cells), dtype=np.uint8), 0)
+        cloud = np.repeat(np.repeat(cloud, 32, 0), 32, 1)[:n, :n]
+        scl = np.where(cloud > 0, cloud,
+                       land_of[r.integers(0, 100, (n, n), dtype=np.uint8)])
+        scl[corner] = 0
+        scl_paths[day] = write_geotiff(
+            cat / "scl" / f"{day:02d}.tif", scl[None], tile, nodata=0,
+            tiled=True, blockxsize=CATALOG_BLOCK, blockysize=CATALOG_BLOCK)
+    t_scl = time.perf_counter() - t0
+
+    # what whole-file reads of each SCL say: the cloud share over the
+    # overlap of the footprint and the tile
+    emit_geom = emit_geom_wgs84_from_umm(emit_items[0]["umm"])
+    _, roi = overlap_emit_fraction(
+        emit_geom, LonLatPolygon.from_geojson(s2_items[0]["geometry"]))
+    xs, ys = tile.pixel_center_coords()
+    gx, gy = np.meshgrid(xs, ys)
+    lon, lat = utm.to_geographic(gx, gy)
+    mask = roi.contains_points(np.asarray(lon), np.asarray(lat))
+    del gx, gy, lon, lat
+    expected = {}
+    for day, p in scl_paths.items():
+        with TiffReader(p) as rd:
+            a = rd.read()[0]
+        valid = mask & (a != 0)
+        clouds = int((valid & np.isin(a, SCL_CLOUD_CLASSES)).sum())
+        expected[day] = clouds / int(valid.sum())
+    return {"t0_day": t0_day, "iso": iso, "cat": cat, "tile": tile,
+            "emit_items": emit_items, "s2_items": s2_items,
+            "emit_geom": emit_geom, "scl_paths": scl_paths,
+            "expected": expected, "t_scl": t_scl, "workdir": workdir,
+            "seconds": time.perf_counter() - t_all}
+
+
+def catalog_phase(setup: dict, card_line: str) -> None:
+    """Phase 17b (see the module docstring): ``discover_pairs`` over the
+    canned responses and SCL rasters of :func:`catalog_setup`, host
+    only, every fetch through the clients' injected callables."""
+    import datetime as dt
+    import shutil
+
+    from hyperres_torch.catalog import (
+        CmrClient, StacClient, discover_pairs, open_remote_scl,
+    )
+    from hyperres_torch.catalog.clients import CMR_GRANULE_SEARCH
+    from hyperres_torch.core.config import PairSearchConfig
+    from hyperres_torch.io.tiff import TiffReader
+
+    t_all = time.perf_counter()
+    cfg = PairSearchConfig()
+    cat, t0_day, iso = setup["cat"], setup["t0_day"], setup["iso"]
+    scl_paths, expected = setup["scl_paths"], setup["expected"]
+    sizes = {d: p.stat().st_size for d, p in scl_paths.items()}
+    log(f"catalog: {len(setup['emit_items'])} EMIT granules over "
+        f"{CATALOG_DATES} dates, {len(setup['s2_items'])} S2 items, "
+        f"{len(scl_paths)} SCL rasters {setup['tile'].height}x"
+        f"{setup['tile'].width} u8 ({sum(sizes.values()) / 1e6:.1f} MB "
+        f"deflate) written in {setup['t_scl']:.1f} s; set-up with the "
+        f"whole-file counts {setup['seconds']:.1f} s, beside phase 17a")
+
+    def path_of(href):
+        return scl_paths[int(href.rsplit("/", 1)[-1][:2])]
+
+    fetched = {"json": 0, "download": [], "range_bytes": 0}
+
+    def fetch_json(url, params=None, method="GET", body=None, **kw):
+        fetched["json"] += 1
+        if url == CMR_GRANULE_SEARCH:
+            page = cat / "cmr" / f"page_{params['page_num']}.json"
+            return json.loads(page.read_text()) if page.exists() else {
+                "items": []}
+        lo, hi = body["datetime"].split("/")
+        bl, bb, br, bt = body["bbox"]
+        keep = [it for it in json.loads((cat / "stac_items.json").read_text())
+                if lo <= it["properties"]["datetime"] <= hi
+                and it["bbox"][0] <= br and it["bbox"][2] >= bl
+                and it["bbox"][1] <= bt and it["bbox"][3] >= bb]
+        return {"features": keep, "links": []}
+
+    def download(url, dst):
+        fetched["download"].append(url)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(path_of(url), dst)
+        return dst
+
+    t0 = time.perf_counter()
+    pairs = discover_pairs(
+        cmr=CmrClient(fetch_json=fetch_json, download=download),
+        stac=StacClient(cfg.stac_api, fetch_json=fetch_json,
+                        download=download),
+        bbox=setup["emit_geom"].bounds(),
+        temporal=(iso(t0_day), iso(t0_day + dt.timedelta(
+            days=CATALOG_DATES + 1))),
+        config=cfg, workdir=setup["workdir"] / "scl_cache")
+    t_pairs = time.perf_counter() - t0
+    n_dl = len(fetched["download"])
+    picks = [(p["date"], p["s2_item"]["id"], round(p["cloud_frac"], 4))
+             for p in pairs if p["s2_item"]]
+    log(f"catalog: discover_pairs {t_pairs:.2f} s ({fetched['json']} JSON "
+        f"fetches, {n_dl} SCL downloads counted over the overlap, "
+        f"{t_pairs / max(n_dl, 1):.2f} s a download); {len(pairs)} dates, "
+        f"kept {[p['date'] for p in pairs if p['kept']]}; picks {picks}",
+        keep=True)
+
+    # the pairs that the whole-file counts say discover_pairs should keep:
+    # on each match day, the full-tile acquisition in the days window
+    # (the S2 time, 10:00, lies past the window's end on its last day)
+    # with the lowest cloud share, kept within max_s2_cloud_frac
+    want = {}
+    for day in CATALOG_MATCH_DAYS:
+        date = (t0_day + dt.timedelta(days=day)).date().isoformat()
+        cands = [d for d in expected if abs(d - day) <= cfg.days_window
+                 and d != day + cfg.days_window]
+        best = min(cands, key=lambda d: expected[d])
+        want[date] = (f"S2_T33_{best:02d}_full", expected[best],
+                      expected[best] <= cfg.max_s2_cloud_frac)
+    got = {p["date"]: (p["s2_item"]["id"], p["cloud_frac"], p["kept"])
+           for p in pairs if p["s2_item"] is not None}
+    dates = sorted({(t0_day + dt.timedelta(days=d)).date().isoformat()
+                    for d in range(1, CATALOG_DATES + 1)})
+    log(f"catalog: whole-file counts "
+        f"{ {d: round(f, 4) for d, f in sorted(expected.items())} }; "
+        f"expected picks {want}")
+    if (got != want or [p["date"] for p in pairs] != dates
+            or any(p["kept"] for p in pairs if p["date"] not in want)):
+        fail(f"catalog: discover_pairs kept {got}, the whole-file counts "
+             f"say {want}")
+
+    # open_remote_scl's ranged reads of the SCL rasters discover_pairs
+    # counted, against whole-file reads
+    def fetch_range(url, start, end):
+        with open(path_of(url), "rb") as f:
+            f.seek(start)
+            blob = f.read(end - start + 1)
+        fetched["range_bytes"] += len(blob)
+        return blob
+
+    t0 = time.perf_counter()
+    for url in fetched["download"]:
+        arr, grid = open_remote_scl(url, fetch_range=fetch_range)
+        with TiffReader(path_of(url)) as rd:
+            whole = rd.read()[0]
+        if not (np.array_equal(arr, whole) and grid == rd.grid
+                == setup["tile"]):
+            fail(f"catalog: open_remote_scl of {url} differs from the "
+                 f"whole read")
+    t_rng = time.perf_counter() - t0
+    size = sum(path_of(u).stat().st_size for u in fetched["download"])
+    log(f"catalog: open_remote_scl of {n_dl} SCL rasters {t_rng:.2f} s, "
+        f"equal to whole reads; {fetched['range_bytes']} bytes fetched for "
+        f"{size} bytes of files; phase 17b {time.perf_counter() - t_all:.1f} "
+        f"s after its set-up; {card_line}", keep=True)
+
+
 def prefetch_phase(dev) -> None:
     """Phase 2a (see the module docstring)."""
     import torch
@@ -2685,8 +3119,19 @@ def main() -> None:
         # -- 16. the command line --------------------------------------------
         cli_phase(Path(d) / "cli", card_line)
         clock.mark("cli")
-    log("the parity, pairs, multi-device, batch and CLI paths' readings, "
-        "again:")
+        # -- 17. the granule toolkit and pair discovery ----------------------
+        # (the catalog's host set-up runs in a thread beside the toolkit)
+        t17 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            setup = pool.submit(catalog_setup, scene, Path(d) / "catalog")
+            toolkit_phase(dev, scene, Path(d) / "toolkit", card_line)
+            clock.mark("toolkit")
+            catalog_phase(setup.result(), card_line)
+        clock.mark("catalog")
+        log(f"phase 17 (toolkit, catalog): {time.perf_counter() - t17:.1f} "
+            f"s; {card_line}", keep=True)
+    log("the parity, pairs, multi-device, batch, CLI, toolkit and catalog "
+        "paths' readings, again:")
     for line in SUMMARY:
         log(line)
     log(f"chip_smoke phases (s): {clock.spans}")

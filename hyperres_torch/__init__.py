@@ -29,8 +29,16 @@ fusion, paired tiling (``tiling``), the SR fit and 10 m product, the
 run's artifacts (``artifacts``)), the batch driver over many pairs
 (``batch``: resume, retries, one worker thread per device), the sharded
 ops on a single-process device mesh (``parallel``: n shards on one card
-or on n cards), the command line (``python -m hyperres_torch``, ``cli``)
-and host-only copies of the quicklooks and HTML viewer (``viz``).
+or on n cards), the command line (``python -m hyperres_torch``, ``cli``),
+host-only copies of the quicklooks and HTML viewer (``viz``), catalog
+search and pair discovery (``catalog``: polygon geometry, the CMR and
+STAC clients over injectable fetchers, SCL cloud metrics over HTTP range
+reads of ``io.tiff``), the granule toolkit (``ortho.toolkit``: raw-space
+subsets, browse orthos, and ``merge_emit``'s mosaic on the device) and
+the stage timer and trace capture (``utils``). Every module of the
+reference has its counterpart here, apart from ``native`` (the g++
+codec: ``io.tiff`` deflates with zlib), ``utils.compile_cache`` (XLA's
+cache) and ``parallel.introspect`` (it parses XLA HLO).
 
 Hand-written kernels, built with ``nvcc`` at first use
 (``kernels._build``):
@@ -52,7 +60,8 @@ On a CUDA tensor a kernel wrapper launches its kernel or raises; on a
 CPU tensor it runs the kernel's plain PyTorch version. The entry points
 (plans, models, ``fusion``, ``ortho``, ``io.ingest``, ``pipeline``,
 ``verify``, ``kernels.warp.resample_to_grid``, ``spectral.synth``,
-``coreg``, ``kernels.phasecorr``, ``tiling``, ``catalog``) take a
+``coreg``, ``kernels.phasecorr``, ``tiling``, ``catalog.s2_stack``,
+``ortho.toolkit.merge_emit``) take a
 ``device`` that defaults to the current CUDA device and raise where
 there is none; ``device="cpu"`` asks for the CPU. So do
 ``parallel.make_mesh`` (its ``devices``), ``BatchPairDriver.run`` (its
@@ -62,3 +71,22 @@ there is none; ``device="cpu"`` asks for the CPU. So do
 from . import device  # noqa: F401  (sets the f32 precision policy)
 
 __version__ = "0.1.0"
+
+from . import core
+
+# subpackages are imported lazily on attribute access to keep bare
+# `import hyperres_torch` light (the reference's list, less ``native``:
+# the port has no g++-built codec)
+_SUBMODULES = ("io", "kernels", "ortho", "spectral", "fusion", "coreg",
+               "tiling", "parallel", "catalog", "artifacts", "viz",
+               "testing", "pipeline", "batch", "cli", "utils")
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module 'hyperres_torch' has no attribute {name!r}")
+
+
+__all__ = ["core", "__version__", *_SUBMODULES]

@@ -1,5 +1,5 @@
 # Port-owned copy of hyperres/catalog/s2_stack.py, verbatim apart from its
-# imports, the resample's device and the duck-typed ``stac`` argument.
+# imports and the resample's device.
 """Sentinel-2 stack assembly, truecolor download, and grid-snapped crops.
 
 Host-side counterparts of the reference's S2 download helpers
@@ -14,17 +14,16 @@ Host-side counterparts of the reference's S2 download helpers
   stack's own grid, preserving band descriptions (:617-783);
 with the reference's file-existence caching everywhere (:635-637).
 
-``stac`` is any object with the reference client's ``download_asset(item,
-key, dest) -> Path`` (``hyperres/catalog/clients.py``'s ``StacClient``
-has it; the port needs no client of its own). The 20 m bands' upsample
-runs on ``device`` (default the current CUDA device; ``"cpu"`` for the
-CPU).
+``stac`` is the port's :class:`~hyperres_torch.catalog.clients.StacClient`
+(its ``download_asset(item, key, dest) -> Path`` is all this module
+calls). The 20 m bands' upsample runs on ``device`` (default the current
+CUDA device; ``"cpu"`` for the CPU).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, List, Tuple, Union
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 
@@ -32,9 +31,7 @@ from ..core.grid import Window, snap_extent_to_anchor
 from ..device import resolve_device
 from ..io.tiff import TiffReader, write_geotiff
 from ..kernels.warp import resample_to_grid
-
-#: the ``stac`` argument: anything with ``download_asset(item, key, dest)``
-StacClient = Any
+from .clients import StacClient
 
 # asset key -> (band description, resampling onto the 10 m grid)
 S2_STACK_ASSETS: List[Tuple[str, str, str]] = [

@@ -28,7 +28,9 @@ bias) -> Ridge(alpha)`` trained in logit space, with sigmoid inference:
   where it takes the model and ``"xla"`` otherwise.
 
 ``x_mean``, ``x_std``, ``W`` (F, By) and ``intercept`` are buffers (None
-until fitted or loaded); the device is explicit. ``save_params`` /
+until fitted or loaded); the device is explicit. ``model.params`` reads
+and sets the four together as a :class:`RidgeSRParams`, the reference's
+parameter record. ``save_params`` /
 ``load_params`` read and write the reference's ``.npz`` checkpoint, so
 a checkpoint crosses between the two packages in either direction.
 :func:`flatten_pixels` builds a training set on the host, in NumPy.
@@ -36,6 +38,7 @@ a checkpoint crosses between the two packages in either direction.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -133,6 +136,17 @@ def predict_quant_batches(model: "RidgeSpectralSR", X: torch.Tensor,
     return out
 
 
+@dataclass
+class RidgeSRParams:
+    """The fitted parameters together (``ridge_sr.py:35``): the model's
+    buffers as tensors."""
+
+    x_mean: torch.Tensor      # (Bx,)
+    x_std: torch.Tensor       # (Bx,)
+    W: torch.Tensor           # (F, By)
+    intercept: torch.Tensor   # (By,)
+
+
 class RidgeSpectralSR(nn.Module):
     """S2 bands -> EMIT-band spectral super-resolution model."""
 
@@ -163,6 +177,18 @@ class RidgeSpectralSR(nn.Module):
     @property
     def fitted(self) -> bool:
         return self.W is not None
+
+    @property
+    def params(self) -> Optional[RidgeSRParams]:
+        """The four buffers as a :class:`RidgeSRParams`; None until
+        fitted or loaded."""
+        if not self.fitted:
+            return None
+        return RidgeSRParams(self.x_mean, self.x_std, self.W, self.intercept)
+
+    @params.setter
+    def params(self, p: RidgeSRParams) -> None:
+        self.params_from_numpy(p.x_mean, p.x_std, p.W, p.intercept)
 
     def _require_fitted(self) -> None:
         if not self.fitted:

@@ -1,8 +1,9 @@
-# Port-owned copy of hyperres/io/tiff.py, verbatim apart from its imports,
-# the deflate of the blocks (stdlib zlib, the native codec's own fallback,
-# on a thread pool as the native codec threads it, instead of the
-# g++-built codec) and the HTTP range reader (HttpRangeSource,
-# TiffReader.open_url), which the port does not use.
+# Port-owned copy of hyperres/io/tiff.py, verbatim apart from its imports
+# and the deflate of the blocks (stdlib zlib, the native codec's own
+# fallback, on a thread pool as the native codec threads it, instead of
+# the g++-built codec). The HTTP range reader (HttpRangeSource,
+# TiffReader.open_url; hyperres/io/tiff.py:482-535 and :577-583) imports
+# ``requests`` only inside its default fetcher.
 """GeoTIFF read/write, self-contained (numpy + zlib).
 
 Replaces the reference's rasterio/GDAL GeoTIFF boundary (used throughout:
@@ -487,6 +488,61 @@ class _FileSource:
         self._fh.close()
 
 
+class HttpRangeSource:
+    """HTTP Range-request byte source with block caching — windowed reads
+    of remote COGs without downloading them (the reference's
+    /vsicurl-style SCL probing, s2_data/cloud_utils.py:33-53). The
+    ``fetch_range(url, start, end_inclusive) -> bytes`` callable is
+    injectable for offline tests; the default uses requests."""
+
+    def __init__(self, url: str, fetch_range=None, block_size: int = 1 << 18):
+        self.url = url
+        self.block_size = int(block_size)
+        self._cache: Dict[int, bytes] = {}
+        self._fetch = fetch_range or self._default_fetch
+
+    @staticmethod
+    def _default_fetch(url: str, start: int, end: int) -> bytes:
+        import requests
+        r = requests.get(url, headers={"Range": f"bytes={start}-{end}"},
+                         timeout=120)
+        r.raise_for_status()
+        content = r.content
+        if r.status_code == 200:
+            # server ignored the Range header: a 200 body always starts
+            # at byte 0, so slice locally regardless of its length
+            # (caching the file head as an arbitrary block corrupts
+            # offsets silently — including short bodies from reads past
+            # EOF on files smaller than the requested span)
+            return content[start:end + 1]
+        return content
+
+    def _block(self, idx: int) -> bytes:
+        if idx not in self._cache:
+            start = idx * self.block_size
+            self._cache[idx] = self._fetch(
+                self.url, start, start + self.block_size - 1)
+        return self._cache[idx]
+
+    def pread(self, offset: int, size: int) -> bytes:
+        out = bytearray()
+        pos = offset
+        end = offset + size
+        while pos < end:
+            idx = pos // self.block_size
+            blk = self._block(idx)
+            lo = pos - idx * self.block_size
+            take = min(end - pos, len(blk) - lo)
+            if take <= 0:
+                break  # past EOF
+            out += blk[lo:lo + take]
+            pos += take
+        return bytes(out)
+
+    def close(self):
+        self._cache.clear()
+
+
 class _SourceFile:
     """File-like adapter over a byte source (seek/read)."""
 
@@ -511,7 +567,7 @@ class _SourceFile:
 
 class TiffReader:
     """Reads (the first IFD of) a classic or Big GeoTIFF, from a local
-    path or any byte source (see ``from_source``)."""
+    path or any byte source (see ``from_source`` / ``open_url``)."""
 
     def __init__(self, path: Union[str, Path]):
         self.path = Path(path)
@@ -525,6 +581,15 @@ class TiffReader:
         self._f = _SourceFile(source)
         self._parse()
         return self
+
+    @classmethod
+    def open_url(cls, url: str, fetch_range=None,
+                 block_size: int = 1 << 18) -> "TiffReader":
+        """Windowed remote reads over HTTP ranges: only the header/IFD
+        blocks plus the raster blocks a ``read(window=...)`` touches are
+        transferred."""
+        return cls.from_source(
+            HttpRangeSource(url, fetch_range, block_size), name=url)
 
     def close(self):
         self._f.close()

@@ -45,6 +45,7 @@ from hyperres_torch.coreg import granule as tcoreg  # noqa: E402
 from hyperres_torch.coreg import local as tlocal  # noqa: E402
 from hyperres_torch.kernels import phasecorr as tpc  # noqa: E402
 from hyperres_torch.tiling import tiles as ttiles  # noqa: E402
+from hyperres_torch.ortho import toolkit as ttoolkit  # noqa: E402
 
 OT = OTConfig(n_samples=200, num_itermax=20)
 
@@ -163,6 +164,19 @@ def _tiles(**kw):
         scale=3, **kw)
 
 
+class _Granule:
+    """A granule with an identity GLT (what ``merge_emit`` reads)."""
+
+    def __init__(self, x0):
+        self.n_bands = 3
+        self.ortho_grid = Grid(CRS.geographic(), x0, 6.0, 1.0, 1.0, 7, 6)
+        self.glt = np.stack(np.meshgrid(np.arange(1, 8), np.arange(1, 7)),
+                            axis=-1).astype(np.int32)
+
+    def read_cube(self):
+        return np.random.default_rng(3).random((6, 7, 3)).astype(np.float32)
+
+
 #: every entry point, called with the keyword arguments it is given
 ENTRY_POINTS = {
     "resolve_device": lambda sc, tmp, **kw: tdevice.resolve_device(
@@ -227,6 +241,8 @@ ENTRY_POINTS = {
         ts2.build_s2_spectral_stack({}, tmp / "stack.tif", **kw),
     "run_pair_pipeline": lambda sc, tmp, **kw: tfuse.run_pair_pipeline(
         tmp / "missing.nc", tmp / "missing.tif", tmp / "out", **kw),
+    "merge_emit": lambda sc, tmp, **kw: ttoolkit.merge_emit(
+        [_Granule(0.0), _Granule(4.5)], **kw)[0],
 }
 #: entry points whose CPU run needs files this module does not make: the
 #: raise without a card is checked here, the CPU run in its own test file

@@ -39,7 +39,9 @@ def scene():
 def test_port_imports_without_jax():
     """Every module of hyperres_torch (found by walking the package) and
     chip_smoke import in a process where importing jax, jaxlib, or
-    hyperres or any hyperres.* module raises."""
+    hyperres or any hyperres.* module raises; none of them imports
+    ``requests`` at import time (the catalog's default fetchers import
+    it when called)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         class _NoJax:
@@ -73,12 +75,19 @@ def test_port_imports_without_jax():
                   "hyperres_torch.parallel.ops", "hyperres_torch.batch",
                   "hyperres_torch.cli", "hyperres_torch.__main__",
                   "hyperres_torch.viz.quicklook",
-                  "hyperres_torch.viz.interactive"):
+                  "hyperres_torch.viz.interactive",
+                  "hyperres_torch.catalog.geometry",
+                  "hyperres_torch.catalog.clients",
+                  "hyperres_torch.catalog.cloud",
+                  "hyperres_torch.catalog.pairing",
+                  "hyperres_torch.ortho.toolkit",
+                  "hyperres_torch.utils",
+                  "hyperres_torch.utils.profiling"):
             assert m in mods, m
         for m in mods + ["chip_smoke"]:
             importlib.import_module(m)
         bad = [m for m in sys.modules if m.split(".")[0] in
-               ("jax", "jaxlib", "hyperres")]
+               ("jax", "jaxlib", "hyperres", "requests")]
         assert not bad, bad
         print(len(mods), "ok")
     """)
