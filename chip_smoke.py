@@ -245,6 +245,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    each SCL over the overlap say (counted in a thread beside the call),
    and each ranged read must equal the whole read; prints the seconds
    and the bytes fetched against the files' sizes.
+18. The card test suite: ``python -m pytest tests_gpu`` in a subprocess
+   from the repository root (kernels loaded from the builds of phase 2),
+   with a junit XML report. ``tests_gpu/`` imports no JAX: each kernel's
+   edge cases against its plain version (both interpolation methods,
+   the dense route, the SRF routes at B = 400 / 401, the SR layouts and
+   the streamed route, the Sinkhorn routes, the prefetcher's buffer
+   lifetime, the ``engine=`` argument) and the four torch demos
+   (``examples/torch_demo_*.py --device cuda``, each with the launch
+   counts set to 0 before it and read after, recorded in the report).
+   Fails unless the subprocess exits 0 within CARD_SUITE_TIMEOUT s, no
+   case failed or erred, and every case passed but TWO_CARD_TEST, which
+   may skip on a machine with one card; a suite that skips because it
+   sees no card fails. Prints each demo's seconds and launches.
 
 Prints the seconds of each phase (``clock.spans``), then the kernels'
 JSON line (the two banded passes, the dense route,
@@ -504,6 +517,11 @@ CATALOG_MATCH_DAYS = (13,)
 CATALOG_CLOUD = {0: 0.2, 5: 0.45, 10: 0.62, 15: 0.31, 20: 0.15, 25: 0.74,
                  30: 0.56}
 CATALOG_BLOCK = 512
+# -- phase 18: the card test suite ------------------------------------------
+#: seconds the card suite's subprocess may take (it took 24 s on an H100)
+CARD_SUITE_TIMEOUT = 300
+#: the one case of the suite that may skip, and only with one card
+TWO_CARD_TEST = "test_kernels_launch_on_the_tensors_card"
 
 
 #: lines printed once more at the end of the run, just before the
@@ -2898,6 +2916,61 @@ def srf_phase(cube, wavelengths, good) -> dict:
     return entry
 
 
+def card_suite_phase(card_line: str) -> None:
+    """Phase 18 (see the module docstring): ``tests_gpu/`` in a pytest
+    subprocess on the card, held to its junit counts."""
+    import os
+    import xml.etree.ElementTree as ET
+
+    import torch
+
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        report = Path(d) / "tests_gpu.xml"
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pytest", "tests_gpu", "-q",
+             "-p", "no:cacheprovider", f"--junitxml={report}",
+             "-o", "junit_family=xunit1"],   # keeps the cases' properties
+            cwd=repo, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            out, _ = proc.communicate(timeout=CARD_SUITE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"card test suite: no exit within {CARD_SUITE_TIMEOUT} s")
+        secs = time.perf_counter() - t0
+        if not report.exists():
+            fail(f"card test suite wrote no report (exit {proc.returncode})"
+                 f": {out[-3000:]}")
+        cases = list(ET.parse(report).getroot().iter("testcase"))
+    outcome = []   # (name, "passed" / "failure" / "error" / "skipped")
+    for case in cases:
+        kinds = [c.tag for c in case
+                 if c.tag in ("failure", "error", "skipped")]
+        outcome.append((case.get("name"), kinds[0] if kinds else "passed"))
+        props = {p.get("name"): p.get("value")
+                 for p in case.iter("property")}
+        if "launches" in props:
+            log(f"phase 18 {case.get('name')}: {props['demo_seconds']} s "
+                f"(case {float(case.get('time')):.1f} s), launches "
+                f"{props['launches']}", keep=True)
+    bad = [n for n, k in outcome if k in ("failure", "error")]
+    skipped = [n for n, k in outcome if k == "skipped"]
+    passed = sum(k == "passed" for _, k in outcome)
+    allowed = [n for n in skipped if n == TWO_CARD_TEST
+               and torch.cuda.device_count() < 2]
+    log(f"phase 18 (card test suite): {passed} passed, {len(skipped)} "
+        f"skipped, {secs:.1f} s; {card_line}", keep=True)
+    if (proc.returncode != 0 or bad or not cases
+            or passed != len(cases) - len(allowed)):
+        fail(f"card test suite: exit {proc.returncode}, {len(cases)} cases, "
+             f"{passed} passed, failed or erred {bad}, skipped "
+             f"{skipped} (allowed {allowed}):\n{out[-6000:]}")
+
+
 def main() -> None:
     import torch
 
@@ -3130,8 +3203,12 @@ def main() -> None:
         clock.mark("catalog")
         log(f"phase 17 (toolkit, catalog): {time.perf_counter() - t17:.1f} "
             f"s; {card_line}", keep=True)
-    log("the parity, pairs, multi-device, batch, CLI, toolkit and catalog "
-        "paths' readings, again:")
+    # -- 18. the card test suite (tests_gpu/, with the torch demos) ----------
+    torch.cuda.empty_cache()
+    card_suite_phase(card_line)
+    clock.mark("card test suite")
+    log("the parity, pairs, multi-device, batch, CLI, toolkit, catalog and "
+        "card suite paths' readings, again:")
     for line in SUMMARY:
         log(line)
     log(f"chip_smoke phases (s): {clock.spans}")

@@ -14,18 +14,28 @@ The library form of a manifest loop over EMIT / S2 pairs:
   worker thread per device entry (repeats allowed: two workers on one
   card), each pair's device work on its worker's device.
 
-Where the port departs from the reference: an exception raised in a
-worker outside a pair's attempts (writing the manifest, say) is
-collected, no worker starts another pair, and ``run`` re-raises it once
-the workers have stopped; the reference's worker thread dies silently
-and ``run`` returns. Every job of a run is entered as ``pending`` when
-the run starts (a job not in the manifest yet), so a pair that never
-ran stays ``pending``.
+Where the port departs from the reference:
+
+- an exception raised in a worker outside a pair's attempts (writing the
+  manifest, say) is collected, no worker starts another pair, and
+  ``run`` re-raises it once the workers have stopped; the reference's
+  worker thread dies silently and ``run`` returns. Every job of a run is
+  entered as ``pending`` when the run starts (a job not in the manifest
+  yet), so a pair that never ran stays ``pending``;
+- a ``torch.AcceleratorError`` in an attempt (an illegal address, a
+  launch failure: the CUDA context is lost, and every later launch in
+  the process fails) is not retried. The attempt is recorded, the pair
+  stays ``pending`` (a resumed run in a fresh process takes it again),
+  the manifest is written and the error leaves the pair's attempts,
+  which stops the batch as above. The reference records and retries
+  every ``Exception``; ``torch.OutOfMemoryError`` and every other
+  exception are still recorded and retried here.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import queue
 import threading
@@ -81,6 +91,8 @@ class BatchPairDriver:
         self.manifest: Dict[str, Dict] = self._load_manifest()
         # the device of the pair the calling thread runs
         self._local = threading.local()
+        # held while a worker changes the manifest and writes it
+        self._lock = threading.Lock()
 
     def _load_manifest(self) -> Dict[str, Dict]:
         if self.manifest_path.exists():
@@ -117,13 +129,22 @@ class BatchPairDriver:
             "attempts": [],
         }
 
+    def _store(self, rec: Dict) -> None:
+        """Enter a pair's record in the manifest and write it."""
+        with self._lock:
+            self.manifest[rec["pair_id"]] = rec
+            self._save_manifest()
+
     def _run_one(self, job: PairJob,
-                 device: Optional[torch.device] = None) -> Dict:
-        """Execute one job (with retries) and return its manifest record.
+                 device: Optional[torch.device] = None) -> None:
+        """Execute one job (with retries) and store its manifest record.
         ``device``: the device the pair runs on (default: the pipeline's,
         the card); the default runner passes it to ``run_pair_pipeline``,
-        and it is the thread's current CUDA device meanwhile."""
-        rec = self._record(job)
+        and it is the thread's current CUDA device meanwhile. A
+        ``torch.AcceleratorError`` is recorded, the pair left ``pending``
+        and the error re-raised once the record is stored."""
+        # a private copy: another worker may write the manifest meanwhile
+        rec = copy.deepcopy(self._record(job))
         pair_dir = self.out_root / job.pair_id
         dev_key = {"device": str(device)} if device is not None else {}
         self._local.device = device
@@ -152,9 +173,12 @@ class BatchPairDriver:
                     "traceback": traceback.format_exc(limit=5),
                     **dev_key,
                 })
+                if isinstance(e, torch.AcceleratorError):
+                    self._store(rec)    # still pending
+                    raise
         if not done:
             rec["status"] = "failed"
-        return rec
+        self._store(rec)
 
     def run(self, jobs: List[PairJob], resume: bool = True,
             devices: Optional[Sequence[Union[str, torch.device]]] = None
@@ -169,8 +193,9 @@ class BatchPairDriver:
         attempts record it), so the pipelines run concurrently with
         per-pair records and resume unchanged. ``None`` or one entry: the
         sequential loop (on that device; ``None`` is the pipeline's
-        default, the card). An exception outside a pair's attempts stops
-        every worker from taking another pair and is re-raised here."""
+        default, the card). An exception outside a pair's attempts, or a
+        ``torch.AcceleratorError`` in one, stops every worker from taking
+        another pair and is re-raised here."""
         devs = [torch.device(d) for d in devices] if devices else []
         todo = [j for j in jobs if not (
             resume and self.manifest.get(j.pair_id, {}).get("status")
@@ -180,14 +205,12 @@ class BatchPairDriver:
         if len(devs) <= 1:
             dev = devs[0] if devs else None
             for job in todo:
-                self.manifest[job.pair_id] = self._run_one(job, dev)
-                self._save_manifest()
+                self._run_one(job, dev)
             return self.manifest
 
         q: "queue.Queue[PairJob]" = queue.Queue()
         for job in todo:
             q.put(job)
-        lock = threading.Lock()
         stop = threading.Event()
         errors: List[BaseException] = []
 
@@ -198,14 +221,10 @@ class BatchPairDriver:
                         job = q.get_nowait()
                     except queue.Empty:
                         return
-                    rec = self._run_one(job, dev)
-                    with lock:
-                        self.manifest[job.pair_id] = rec
-                        self._save_manifest()
+                    self._run_one(job, dev)
             except BaseException as e:  # noqa: BLE001 (re-raised by run)
                 stop.set()
-                with lock:
-                    errors.append(e)
+                errors.append(e)
 
         threads = [threading.Thread(target=worker, args=(d,), daemon=True)
                    for d in devs]

@@ -9,6 +9,11 @@ Launch counters: each hand-written kernel's wrapper adds one to its
 count where it launches the kernel and nowhere else, so a run can show
 that its main path went through the kernel (``chip_smoke.py`` resets
 the counts, drives the plan and reads them back).
+
+Launch errors: a wrapper whose kernel returns a nonzero CUDA code raises
+through :func:`launch_error`, so a code that leaves the context unusable
+reaches callers as ``torch.AcceleratorError`` (``batch.py`` stops on it)
+and a refused shape as a plain ``RuntimeError``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,25 @@ def count_launch(name: str) -> None:
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
+
+
+#: ``cudaErrorInvalidValue``: the kernels' host code returns it for a
+#: shape it refuses before launching; it leaves the context usable
+CUDA_ERROR_INVALID_VALUE = 1
+
+
+def launch_error(what: str, rc: int) -> RuntimeError:
+    """The exception for the nonzero CUDA code ``rc`` returned by
+    ``what`` (a kernel launch, as "<kernel> kernel launch"), with the
+    message "<what> failed: CUDA error <rc>": a ``RuntimeError`` for a
+    refused shape (``rc == 1``), else ``torch.AcceleratorError``, since
+    any other code (an illegal address, a launch failure) may be sticky:
+    the CUDA context is lost, and every later launch in the process
+    fails."""
+    msg = f"{what} failed: CUDA error {rc}"
+    if rc == CUDA_ERROR_INVALID_VALUE:
+        return RuntimeError(msg)
+    return torch.AcceleratorError(msg)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

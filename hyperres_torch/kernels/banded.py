@@ -48,7 +48,7 @@ import ctypes
 
 import torch
 
-from ..device import count_launch
+from ..device import count_launch, launch_error
 from .host import cubic_kernel_weight
 
 #: launch-counter names, by contraction axis
@@ -148,8 +148,7 @@ def _launch(src: torch.Tensor, pos: torch.Tensor, axis: int,
         rc = fn(src.data_ptr(), pos.data_ptr(), out.data_ptr(), p, q, c, s,
                 sp, sq, ss, int(method == "cubic"), stream)
     if rc != 0:
-        raise RuntimeError(f"scanline_resample kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise launch_error("scanline_resample kernel launch", rc)
     count_launch(name)
     return out
 

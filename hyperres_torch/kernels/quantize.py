@@ -33,7 +33,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..device import count_launch
+from ..device import count_launch, launch_error
 
 #: launch-counter name
 KERNEL_NAME = "quantize_u16"
@@ -139,8 +139,7 @@ def quantize_u16(x: torch.Tensor, lo: Bound, hi: Bound,
                 0.0 if nodata_src is None else float(nodata_src),
                 int(nodata_u16), stream)
     if rc != 0:
-        raise RuntimeError(f"quantize_u16 kernel launch failed: CUDA error "
-                           f"{rc}")
+        raise launch_error("quantize_u16 kernel launch", rc)
     count_launch(KERNEL_NAME)
     return out
 

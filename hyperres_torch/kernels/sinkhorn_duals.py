@@ -40,7 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import count_launch
+from ..device import count_launch, launch_error
 
 KERNEL_NAME = "sinkhorn_duals"
 #: launch counter of the long-rows route
@@ -257,7 +257,7 @@ def sinkhorn_duals(log_a: torch.Tensor, log_b: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.sinkhorn_device_limits(ctypes.byref(sms), ctypes.byref(smem))
     if rc != 0:
-        raise RuntimeError(f"sinkhorn_device_limits failed: CUDA error {rc}")
+        raise launch_error("sinkhorn_device_limits", rc)
     route = sinkhorn_route(n, m, sms.value, smem.value)
     f = torch.zeros(n, dtype=torch.float32, device=dev)
     g = torch.zeros(m, dtype=torch.float32, device=dev)
@@ -310,8 +310,7 @@ def sinkhorn_duals(log_a: torch.Tensor, log_b: torch.Tensor,
             rc = fn(*(t.data_ptr() for t in ptrs), err.data_ptr(), *shape,
                     k, stream)
         if rc != 0:
-            raise RuntimeError(f"sinkhorn_duals kernel launch failed: CUDA "
-                               f"error {rc}")
+            raise launch_error("sinkhorn_duals kernel launch", rc)
         count_launch(name)
         return err
 

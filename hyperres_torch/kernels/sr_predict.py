@@ -58,7 +58,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import count_launch
+from ..device import count_launch, launch_error
 from .lstsq import poly_expand, sigmoid
 from .stats import quantize_reflectance_u16
 
@@ -399,7 +399,7 @@ def sr_predict_u16(X: torch.Tensor, x_mean: torch.Tensor,
                 int(nodata is not None),
                 0.0 if nodata is None else float(nodata), stream)
     if rc != 0:
-        raise RuntimeError(f"sr_predict_u16 kernel launch ({route} route) "
-                           f"failed: CUDA error {rc}")
+        raise launch_error(f"sr_predict_u16 kernel launch ({route} route)",
+                           rc)
     count_launch(name)
     return out

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..core.constants import NO_DATA_VALUE
-from ..device import count_launch, resolve_device
+from ..device import count_launch, launch_error, resolve_device
 from .host import SRFDict, build_srf_weight_matrix
 
 #: the routes (csrc/srf_synthesize.cu)
@@ -174,8 +174,8 @@ def pallas_srf_synthesize(cube_flat: torch.Tensor, weights: torch.Tensor,
                 None if mask is None else mask.data_ptr(), out.data_ptr(),
                 *shape, float(fill_value), stream)
     if rc != 0:
-        raise RuntimeError(f"srf_synthesize kernel launch ({route} route) "
-                           f"failed: CUDA error {rc}")
+        raise launch_error(f"srf_synthesize kernel launch ({route} route)",
+                           rc)
     count_launch(ROUTE_NAMES[route])
     return out
 

@@ -6,7 +6,10 @@ devices; resume and retries; record-and-continue held to the JAX
 driver (the manifest's statuses and attempt keys on the same jobs and
 the same runner); and the worker death the reference leaves silent: an
 exception outside a pair's attempts makes ``run`` raise, and the pairs
-never run stay ``pending``.
+never run stay ``pending``. A ``torch.AcceleratorError`` (a CUDA error
+that loses the context) is not retried: the batch stops with the pair
+``pending`` and its attempt recorded, and a resumed run completes it;
+``torch.OutOfMemoryError`` and a refused launch are recorded and retried.
 
 No tolerances: the checks are statuses, keys, counts and wall-clock
 overlap.
@@ -30,6 +33,7 @@ from hyperres.batch import BatchPairDriver as JDriver  # noqa: E402
 from hyperres.batch import PairJob as JJob  # noqa: E402
 from hyperres_torch.batch import BatchPairDriver, PairJob  # noqa: E402
 from hyperres_torch.core.config import TilingConfig  # noqa: E402
+from hyperres_torch.device import launch_error  # noqa: E402
 from hyperres_torch.testing.scenes import make_scene  # noqa: E402
 
 TILING = TilingConfig(emit_tile_size=16, max_black_frac=0.5)
@@ -186,3 +190,89 @@ def test_worker_failure_is_raised_and_unrun_pairs_stay_pending(tmp_path):
     assert set(status) == {f"p{i}" for i in range(6)}
     assert sum(s == "pending" for s in status.values()) == 6 - len(ran)
     assert all(status[p] == "done" for p in ran)
+
+
+def _statuses(path):
+    """{pair_id: (status, [success of each attempt])} of the manifest on
+    disk."""
+    m = BatchPairDriver(path).manifest
+    return {k: (v["status"], [a["success"] for a in v["attempts"]])
+            for k, v in m.items()}
+
+
+@pytest.mark.parametrize("threaded", [False, True])
+def test_cuda_fault_stops_the_batch(tmp_path, threaded):
+    """A runner that raises ``torch.AcceleratorError`` on the second job
+    (sequential: three jobs; threaded: six on ``["cpu"] * 3``, the other
+    pairs slow enough that the fault lands while they run): ``run``
+    re-raises it after one call for that pair. The manifest on disk has
+    that pair ``pending`` with one failed attempt (error, traceback and
+    device recorded), every pair that ran ``done`` and every other one
+    ``pending`` with no attempt; sequentially exactly pair 1 ran before
+    it, threaded at most the two other workers' first pairs did. A new
+    driver on the same directory with a good runner completes the rest
+    and reruns no ``done`` pair."""
+    n = 6 if threaded else 3
+    jobs = [PairJob(f"p{i}", "a.nc", "b.tif") for i in range(n)]
+    calls = []
+
+    def faulty(job, pair_dir):
+        calls.append(job.pair_id)
+        if job.pair_id == "p1":
+            raise torch.AcceleratorError(
+                "CUDA error: an illegal memory access was encountered")
+        time.sleep(0.3 if threaded else 0.0)
+        return {}
+
+    devices = ["cpu"] * 3 if threaded else ["cpu"]
+    driver = BatchPairDriver(tmp_path / "b", runner=faulty)
+    with pytest.raises(torch.AcceleratorError, match="illegal memory"):
+        driver.run(jobs, devices=devices)
+    assert calls.count("p1") == 1
+    ran = set(calls) - {"p1"}
+    assert ran == {"p0"} if not threaded else ran <= {"p0", "p2", "p3"}
+    status = _statuses(tmp_path / "b")
+    assert status == {f"p{i}": ("done", [True]) if f"p{i}" in ran
+                      else ("pending", [False] if i == 1 else [])
+                      for i in range(n)}
+    failed = BatchPairDriver(tmp_path / "b").manifest["p1"]["attempts"][0]
+    assert "illegal memory" in failed["error"]
+    assert "AcceleratorError" in failed["traceback"]
+    assert failed["device"] == "cpu"
+
+    rerun = []
+
+    def good(job, pair_dir):
+        rerun.append(job.pair_id)
+        return {}
+
+    BatchPairDriver(tmp_path / "b", runner=good).run(jobs, devices=devices)
+    assert sorted(rerun) == sorted(f"p{i}" for i in range(n)
+                                   if f"p{i}" not in ran)
+    status = _statuses(tmp_path / "b")
+    assert status["p1"] == ("done", [False, True])
+    assert all(s == "done" for s, _ in status.values())
+
+
+@pytest.mark.parametrize("error", [
+    torch.OutOfMemoryError("CUDA out of memory. Tried to allocate 2.00 GiB"),
+    launch_error("quantize_u16 kernel launch", 1)])
+def test_out_of_memory_and_refused_launch_are_retried(tmp_path, error):
+    """``torch.OutOfMemoryError`` and a launch the host code refused
+    (CUDA error 1, a plain ``RuntimeError``) are no
+    ``torch.AcceleratorError``: the pair that raises them is recorded
+    and retried (1 + max_retries attempts) and ``failed``, and the batch
+    goes on to the next pair, as the reference's driver does."""
+    assert not isinstance(error, torch.AcceleratorError)
+
+    def runner(job, pair_dir):
+        if job.pair_id == "p0":
+            raise error
+        return {}
+
+    jobs = [PairJob(f"p{i}", "a.nc", "b.tif") for i in range(2)]
+    driver = BatchPairDriver(tmp_path / "o", runner=runner)
+    driver.run(jobs)
+    assert _statuses(tmp_path / "o") == {"p0": ("failed", [False, False]),
+                                         "p1": ("done", [True])}
+    assert str(error) in driver.manifest["p0"]["attempts"][-1]["error"]

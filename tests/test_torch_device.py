@@ -292,3 +292,19 @@ def test_resolve_device_default_is_the_current_card(monkeypatch):
     assert tdevice.resolve_device("cuda") == torch.device("cuda")
     assert tdevice.resolve_device("cuda:1") == torch.device("cuda", 1)
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("rc", [1, 700, 719])
+def test_launch_error_types(rc):
+    """A kernel's launch code as an exception: 1 (cudaErrorInvalidValue,
+    the host code's refusal of a shape; not sticky) a ``RuntimeError``
+    that is not ``torch.AcceleratorError``; any other code (700 an
+    illegal address, 719 a launch failure: sticky) a
+    ``torch.AcceleratorError``. The message names the kernel and the
+    code in the wrappers' words."""
+    e = tdevice.launch_error("sr_predict_u16 kernel launch (streamed route)",
+                             rc)
+    assert type(e) is (RuntimeError if rc == 1 else torch.AcceleratorError)
+    assert isinstance(e, RuntimeError)
+    assert str(e) == ("sr_predict_u16 kernel launch (streamed route) failed:"
+                      f" CUDA error {rc}")

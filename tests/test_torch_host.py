@@ -3,6 +3,7 @@ port-owned NumPy copies of the reference's host helpers are equal to
 the originals (``array_equal``: the copies are verbatim, so any
 difference is a fault, not rounding)."""
 
+import ast
 import subprocess
 import sys
 import textwrap
@@ -95,6 +96,33 @@ def test_port_imports_without_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith(" ok")
+
+
+def _imported_modules(path):
+    """Every module name an ``import`` or ``from ... import`` statement of
+    the file at ``path`` names (relative imports as written, dots
+    included)."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append("." * node.level + (node.module or ""))
+    return names
+
+
+def test_card_suite_and_torch_demos_import_no_jax():
+    """No file under tests_gpu/ (the card-side tests, run where there is
+    no JAX) and no examples/torch_demo_*.py imports ``jax``, ``jaxlib``
+    or ``hyperres`` (``hyperres_torch`` is the port): every import
+    statement, at any depth, parsed with ``ast``."""
+    files = (sorted((REPO / "tests_gpu").rglob("*.py"))
+             + sorted((REPO / "examples").glob("torch_demo_*.py")))
+    assert len(files) >= 4 + 2
+    for path in files:
+        bad = [m for m in _imported_modules(path)
+               if m.split(".")[0] in ("jax", "jaxlib", "hyperres")]
+        assert not bad, (path, bad)
 
 
 def test_prepare_glt_copy(rng):

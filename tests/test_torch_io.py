@@ -3,7 +3,7 @@ package on the CPU: the HDF5 / granule readers, GeoTIFF, ENVI and XML
 writers and readers, the synthetic scene factory, the slab quantizers,
 ``dequant_slab``, ``stream_cube_to_device`` and ``PrefetchToDevice``.
 Inputs are made from a seed and given to both. The CUDA placement of
-``PrefetchToDevice`` runs only on a card (marked ``gpu``)."""
+``PrefetchToDevice`` runs only on a card (on the card: tests_gpu/)."""
 
 import sys
 import threading
@@ -306,32 +306,3 @@ def test_prefetch_batches_and_readers(rng):
             lambda s, e: arr[..., s:e], 70, 32),
             jpipeline.band_chunk_reader(lambda s, e: arr[..., s:e], 70, 32)):
         np.testing.assert_array_equal(a, b)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-def test_prefetch_cuda_buffers_outlive_their_use(cuda):
-    """On the card, with a consumer that keeps its stream busy before it
-    reads each batch: every batch arrives intact (the pinned buffer
-    outlives its copy; the side-stream tensor is record_stream'd, so the
-    allocator does not hand it to a later copy)."""
-    n, shape = 24, (1024, 1024)
-
-    def source():
-        for i in range(n):
-            yield np.full(shape, i, np.float32)
-
-    sums = []
-    for x in tpipeline.PrefetchToDevice(source(), depth=3, device=cuda):
-        torch.cuda._sleep(2_000_000)
-        sums.append(x.sum())
-        del x
-    torch.cuda.synchronize()
-    assert [float(s) for s in sums] == [float(i * shape[0] * shape[1])
-                                        for i in range(n)]

@@ -4,7 +4,7 @@ CPU: the Sinkhorn-duals kernel's plain version against
 barycentric targets and the engine budget rule, the affine fit, the
 host sampler and the phase-wise API of ``fusion/ot.py``. Inputs are made
 with NumPy from a seed and given to both packages. The kernel itself
-runs only on a CUDA device (marked ``gpu``)."""
+runs only on a CUDA device (on the card: tests_gpu/)."""
 
 import sys
 from pathlib import Path
@@ -463,94 +463,3 @@ def test_two_read_route_is_never_chosen():
              for n in (1, 128, 5000) for m in (1, 6144, 6145, 200_000)}
     assert names == {tduals.ONE_PASS, tduals.LONG_ROWS}
     assert tduals.TWO_READ not in names
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the Sinkhorn kernel has no CPU "
-                    "mode")
-    return torch.device("cuda", 0)
-
-
-@pytest.mark.gpu
-def test_sinkhorn_duals_kernel_matches_plain_on_gpu(cuda_device, rng):
-    """The CUDA kernel == its plain version on the card at 1000 x 1200,
-    60 sweeps: P to 1e-5 of its largest entry and f, g to 1e-4 (both sum
-    f32 exps in their own fixed orders), err to 10 % plus 1e-8 (near
-    convergence err is rounding noise); two kernel runs give the same
-    bits; each group of 10 sweeps counts one launch."""
-    Mr = T(_cost(rng, 1000, 1200)).to(cuda_device)
-    la = torch.full((1000,), -np.log(1000.0), device=cuda_device)
-    lb = torch.full((1200,), -np.log(1200.0), device=cuda_device)
-    reset_launch_counts()
-    f, g, err = tduals.sinkhorn_duals(la, lb, Mr, 60, 0.0)
-    f2, g2, _ = tduals.sinkhorn_duals(la, lb, Mr, 60, 0.0)
-    assert launch_counts == {tduals.KERNEL_NAME: 12}
-    assert torch.equal(f, f2) and torch.equal(g, g2)
-    rf, rg, rerr = tduals.sinkhorn_duals_reference(la, lb, Mr, 60, 0.0)
-    P = torch.exp(Mr + f[:, None] + g[None, :])
-    dP = (P - torch.exp(Mr + rf[:, None] + rg[None, :])).abs().max()
-    assert float(dP) <= 1e-5 * float(P.max())
-    torch.testing.assert_close(f, rf, rtol=0, atol=1e-4)
-    torch.testing.assert_close(g, rg, rtol=0, atol=1e-4)
-    assert (abs(float(err) - float(rerr))
-            <= 0.1 * max(float(err), float(rerr)) + 1e-8)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,m", [(64, 7001), (37, 6145)])
-def test_sinkhorn_long_rows_kernel_matches_plain_on_gpu(cuda_device, rng,
-                                                        n, m):
-    """The long-rows route (m > ONE_PASS_COLS; m odd, so rows are not
-    16-byte aligned) against the plain version at 60 sweeps, with the
-    bounds of the one-pass test; two runs give the same bits; each group
-    of 10 sweeps counts one launch of the long-rows counter alone."""
-    Mr = T(_cost(rng, n, m)).to(cuda_device)
-    la = torch.full((n,), -np.log(float(n)), device=cuda_device)
-    lb = torch.full((m,), -np.log(float(m)), device=cuda_device)
-    reset_launch_counts()
-    f, g, err = tduals.sinkhorn_duals(la, lb, Mr, 60, 0.0)
-    f2, g2, _ = tduals.sinkhorn_duals(la, lb, Mr, 60, 0.0)
-    assert launch_counts == {tduals.LONG_ROWS_NAME: 12}
-    assert torch.equal(f, f2) and torch.equal(g, g2)
-    rf, rg, rerr = tduals.sinkhorn_duals_reference(la, lb, Mr, 60, 0.0)
-    P = torch.exp(Mr + f[:, None] + g[None, :])
-    dP = (P - torch.exp(Mr + rf[:, None] + rg[None, :])).abs().max()
-    assert float(dP) <= 1e-5 * float(P.max())
-    torch.testing.assert_close(f, rf, rtol=0, atol=1e-4)
-    torch.testing.assert_close(g, rg, rtol=0, atol=1e-4)
-    assert (abs(float(err) - float(rerr))
-            <= 0.1 * max(float(err), float(rerr)) + 1e-8)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,m", [(128, 100_000), (1024, 20_000), (8, 6400)])
-def test_sliced_long_rows_on_gpu(cuda_device, rng, n, m):
-    """The sliced long-rows kernels at the shapes chip_smoke.py times (m a
-    multiple of 4: the 16-byte loads; one chunk, four chunks, eight)
-    against the plain version at 50 sweeps with the bounds of the one-pass
-    test; two runs bit-equal; the two-read kernels, forced, agree with
-    the plain version too and count under their own name."""
-    Mr = T(_cost(rng, n, m)).to(cuda_device)
-    la = torch.full((n,), -np.log(float(n)), device=cuda_device)
-    lb = torch.full((m,), -np.log(float(m)), device=cuda_device)
-    rf, rg, _ = tduals.sinkhorn_duals_reference(la, lb, Mr, 50, 0.0)
-    Pr = torch.exp(Mr + rf[:, None] + rg[None, :])
-    reset_launch_counts()
-    f, g, _ = tduals.sinkhorn_duals(la, lb, Mr, 50, 0.0)
-    f2, g2, _ = tduals.sinkhorn_duals(la, lb, Mr, 50, 0.0)
-    assert launch_counts == {tduals.LONG_ROWS_NAME: 10}
-    assert torch.equal(f, f2) and torch.equal(g, g2)
-    P = torch.exp(Mr + f[:, None] + g[None, :])
-    assert float((P - Pr).abs().max()) <= 1e-5 * float(Pr.max())
-    rule = tduals.sinkhorn_route
-    tduals.sinkhorn_route = lambda *shape: tduals.Route(tduals.TWO_READ)
-    try:
-        reset_launch_counts()
-        f, g, _ = tduals.sinkhorn_duals(la, lb, Mr, 50, 0.0)
-    finally:
-        tduals.sinkhorn_route = rule
-    assert launch_counts == {tduals.TWO_READ_NAME: 5}
-    P = torch.exp(Mr + f[:, None] + g[None, :])
-    assert float((P - Pr).abs().max()) <= 1e-5 * float(Pr.max())

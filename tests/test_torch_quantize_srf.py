@@ -5,7 +5,7 @@ the JAX reference on the CPU: ``quantize_u16`` (both forms) against
 kernel (interpret mode) and ``srf_synthesize``, plus the OBS range
 estimator and ``dequantize_u16``. Inputs are made with NumPy from a seed
 and given to both. The CUDA kernels themselves run only on a card
-(marked ``gpu``)."""
+(on the card: tests_gpu/)."""
 
 import sys
 from pathlib import Path
@@ -266,59 +266,3 @@ def test_srf_wrapper_validates():
         tsrf.pallas_srf_synthesize(x.double(), w)
     with pytest.raises(ValueError):
         tsrf.pallas_srf_synthesize(x, w, torch.ones(4, dtype=torch.bool))
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-def test_kernels_match_plain_on_card(cuda, rng):
-    """On the card: the quantize kernel == its plain version exactly
-    (both forms), the SRF kernel within 1e-5 with the fill exact; each
-    wrapper counts its launch."""
-    x = T(_values(rng, (64, 50, 285))).to(cuda)
-    reset_launch_counts()
-    for form, hi in (("stats", 6.5535), ("pallas", 6.5535)):
-        a = tq.quantize_u16(x, 0.0, hi, None, 65535, form=form)
-        b = tq.quantize_u16_reference(x, 0.0, hi, None, 65535, form=form)
-        assert torch.equal(a.to(torch.int32), b.to(torch.int32))
-    cube, W, valid = _srf_case(rng, 285, shape=(40, 33))
-    flat, v = T(cube.reshape(-1, 285)).to(cuda), T(valid.reshape(-1)).to(cuda)
-    got = tsrf.pallas_srf_synthesize(flat, T(W).to(cuda), v)
-    want = tsrf.srf_synthesize_reference(flat, T(W).to(cuda), v)
-    assert float((got - want).abs().max()) <= 1e-5
-    assert torch.equal(got[~v], want[~v])
-    assert launch_counts == {tq.KERNEL_NAME: 2, tsrf.KERNEL_NAME: 1}
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,s", [(285, 13), (285, 40), (401, 20), (400, 20),
-                                 (244, 5)])
-def test_srf_routes_match_plain_on_card(cuda, rng, b, s):
-    """Every route of the SRF kernel on the card (tiled with 64- and
-    32-row tiles, S past 16, the generic kernel, the warp kernel) on 1003
-    rows, once from a
-    16-byte-aligned base and once from a view 3 rows in: within 3e-6 of
-    the largest output of its plain version, the fill exact, one launch
-    each under the route's own counter; the tiled kernel's shared-memory plan equals the wrapper's
-    mirror."""
-    x = T(rng.random((1003, b)).astype(np.float32)).to(cuda)
-    W = T(rng.random((b, s)).astype(np.float32)).to(cuda)
-    v = T(rng.random(1003) > 0.3).to(cuda)
-    for rows in (slice(None), slice(3, None)):
-        reset_launch_counts()
-        got = tsrf.pallas_srf_synthesize(x[rows], W, v[rows])
-        want = tsrf.srf_synthesize_reference(x[rows], W, v[rows])
-        assert launch_counts == {
-            tsrf.ROUTE_NAMES[tsrf.srf_route(b, s)[0]]: 1}
-        assert float((got - want).abs().max()) <= 3e-6 * float(want.max())
-        assert bool((got[~v[rows]] == -9999.0).all())
-    from hyperres_torch.kernels._build import load_library
-    lib = load_library("srf_synthesize")
-    for r in (2, 1):
-        assert (lib.srf_tiled_smem_bytes(b, s, r)
-                == tsrf._tiled_smem_bytes(b, s, r))

@@ -3,7 +3,7 @@ warp and ``resample_to_grid`` (``hyperres_torch.kernels.warp``) against
 the JAX reference on the CPU. Inputs are made with NumPy from a seed and
 given to both; the port runs with ``device="cpu"`` (its scanline passes
 through the kernel's plain version). The kernel itself runs only on a
-CUDA device (marked ``gpu``).
+CUDA device (on the card: tests_gpu/).
 
 Tolerances: the gather kernels sum the same <= 16 f32 tap products in
 the same order, differing by FMA contraction and the cubic weights'
@@ -34,7 +34,6 @@ from hyperres.kernels import glt as jglt  # noqa: E402
 from hyperres.kernels import warp as jwarp  # noqa: E402
 from hyperres_torch.core.crs import CRS  # noqa: E402
 from hyperres_torch.core.grid import Grid  # noqa: E402
-from hyperres_torch.device import launch_counts, reset_launch_counts  # noqa: E402
 from hyperres_torch.kernels import banded  # noqa: E402
 from hyperres_torch.kernels import glt as tglt  # noqa: E402
 from hyperres_torch.kernels import host  # noqa: E402
@@ -343,35 +342,6 @@ def test_warp_two_pass_counts_two_launches(rng, monkeypatch):
     twarp.warp_two_pass(T(img), T(rows), T(cols), T(cstar), nodata=NODATA)
     twarp.warp_two_pass(T(img), T(rows), T(cols), T(cstar))
     assert calls == [(1, 10), (0, 10), (1, 6), (0, 6)]
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the scanline kernel has no CPU "
-                    "form")
-    return torch.device("cuda", 0)
-
-
-@pytest.mark.gpu
-def test_warp_two_pass_launches_the_kernel_on_the_card(cuda_device, rng):
-    """On a CUDA tensor ``warp_two_pass`` launches each pass of
-    ``csrc/scanline_warp.cu`` once, at 2 B = 570 channels, and agrees
-    with the gather warp to TWO_PASS_ATOL."""
-    dev = cuda_device
-    ho, wo, hd, wd = 200, 210, 190, 205
-    r = np.arange(hd, dtype=np.float32)[:, None]
-    j = np.arange(wd, dtype=np.float32)[None, :]
-    rows = (r * (ho / hd) + 0.3 + 0 * j).astype(np.float32)
-    cols = (j * (wo / wd) - 0.2 + 0 * r).astype(np.float32)
-    cstar = host.scanline_cstar(rows, cols, ho)
-    img = rng.random((ho, wo, 285)).astype(np.float32)
-    args = [T(a).to(dev) for a in (img, rows, cols, cstar)]
-    reset_launch_counts()
-    got = twarp.warp_two_pass(*args, nodata=NODATA)
-    assert dict(launch_counts) == {n: 1 for n in banded.KERNEL_NAMES.values()}
-    want = twarp.warp_interpolate(*args[:3], nodata=NODATA, method="cubic")
-    torch.testing.assert_close(got, want, rtol=0, atol=TWO_PASS_ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ interpret mode), the dense route's plain version against
 ``pallas_scanline_resample`` (in interpret mode), the fused GLT
 orthowarp by both routes, the grid transfers and the GLT gather. Inputs
 are made with NumPy from a seed and given to both. The kernel itself
-runs only on a CUDA device (marked ``gpu``)."""
+runs only on a CUDA device (on the card: tests_gpu/)."""
 
 import sys
 from pathlib import Path
@@ -24,7 +24,6 @@ from hyperres.kernels import warp as jwarp  # noqa: E402
 from hyperres.kernels.pallas_ops import (  # noqa: E402
     banded_spans_ok, pallas_banded_two_pass, pallas_scanline_resample,
 )
-from hyperres_torch.device import launch_counts, reset_launch_counts  # noqa: E402
 from hyperres_torch.kernels import banded  # noqa: E402
 from hyperres_torch.kernels import glt as tglt  # noqa: E402
 from hyperres_torch.kernels import host  # noqa: E402
@@ -364,52 +363,3 @@ def test_glt_gather_matches_jax(rng):
                                       jnp.asarray(vmask)))
     got = tglt.glt_gather(T(raw), T(flat_idx), T(vmask)).numpy()
     np.testing.assert_array_equal(got, want)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the scanline kernel has no CPU "
-                    "mode")
-    return torch.device("cuda", 0)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("method", ["cubic", "bilinear"])
-def test_scanline_kernel_matches_plain_on_gpu(cuda_device, method, rng):
-    """The CUDA kernel == its plain version on the card, both passes, at
-    the warp's real channel width (286), to 1e-5 (same taps; FMA
-    contraction differs); each launch counts once."""
-    rows, _, cstar = _geometry("wide_150x600")
-    src = T(rng.random((150, 600, 286)).astype(np.float32)).to(cuda_device)
-    cstar_d, rows_d = T(cstar).to(cuda_device), T(rows).to(cuda_device)
-    reset_launch_counts()
-    h = banded.scanline_resample(src, cstar_d, 1, method)
-    out = banded.scanline_resample(h, rows_d, 0, method)
-    assert launch_counts == {"scanline_resample_pass1": 1,
-                             "scanline_resample_pass2": 1}
-    h_ref = banded.scanline_resample_reference(src, cstar_d, 1, method)
-    out_ref = banded.scanline_resample_reference(h, rows_d, 0, method)
-    torch.testing.assert_close(h, h_ref, rtol=0, atol=1e-5)
-    torch.testing.assert_close(out, out_ref, rtol=0, atol=1e-5)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("method", ["cubic", "bilinear"])
-def test_dense_kernel_matches_plain_on_gpu(cuda_device, method, rng):
-    """The dense route on the card == its dense plain version, both
-    passes as the warp runs them (pass 2 on pass 1's natural layout), at
-    the warp's channel width (286), to 1e-5; one launch per pass under
-    the dense route's own counter."""
-    rows, _, cstar = _geometry("wide_150x600")
-    src = T(rng.random((150, 600, 286)).astype(np.float32)).to(cuda_device)
-    cstar_d, rows_d = T(cstar).to(cuda_device), T(rows).to(cuda_device)
-    reset_launch_counts()
-    h = banded.scanline_resample_dense(src, cstar_d, method)
-    out = banded.scanline_resample_dense(h, rows_d, method, axis=0)
-    assert launch_counts == {banded.DENSE_KERNEL_NAME: 2}
-    h_ref = banded.scanline_resample_dense_reference(src, cstar_d, method)
-    out_ref = banded.scanline_resample_dense_reference(h, rows_d, method,
-                                                       axis=0)
-    torch.testing.assert_close(h, h_ref, rtol=0, atol=1e-5)
-    torch.testing.assert_close(out, out_ref, rtol=0, atol=1e-5)
