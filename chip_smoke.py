@@ -28,14 +28,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    operands, cubic and bilinear, within KERNEL_TOL; the dense route
    (both passes, pass 2 on pass 1's natural layout) against its dense
    plain version on the same operands.
-4. Main path: generates the full-scale (1.0) bench scene, builds the
-   port's ``FusedOrthoFusionPlan`` on the card, runs it once to warm up
-   and N_RUNS times under CUDA events, checks the output shapes and that
-   every run launched each pass of the kernel once. Then times the
-   kernel against its plain version at the main path's shapes.
-5. Accuracy gates of ``bench.py`` against the plan's own
-   ``s2_reference_10m``: finite fraction > 0.3, max <= 1, pipeline PSNR
-   >= 45 dB, SAM <= 0.01 rad, method PSNR >= 28 dB.
+4. Main path: ``bench_torch.build_workload`` at full scale (1.0): the
+   bench scene, generated and cached under ``.scenecache/`` (phase 19
+   reads it), and the port's ``FusedOrthoFusionPlan`` on the card; runs
+   it once to warm up and N_RUNS times as ``bench_torch.timed_runs``
+   times them (CUDA events), checks the output shapes and that every run
+   launched each pass of the kernel once. Then times the kernel against
+   its plain version at the main path's shapes.
+5. Accuracy gates of ``bench.py`` (``bench_torch.accuracy_metrics`` and
+   ``bench_torch.GATES``) against the plan's own ``s2_reference_10m``:
+   finite fraction > 0.3, max <= 1, pipeline PSNR >= 45 dB, SAM <= 0.01
+   rad, method PSNR >= 28 dB.
 5a. The ``warp_kernel="pallas"`` plan (the dense scanline route) at
    full scale: warm-up and N_RUNS runs under CUDA events, two dense
    launches per run, every gate of phase 5, its ``utm_cube`` within
@@ -95,7 +98,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    kernels' where every tap of both reads a valid source (the valid
    weight mass is 1), 2 px inside that area's edge.
 6. Spectral-SR fit and entry: fits the product ridge model (degree 3,
-   10 -> 32 bands) on the card on 200k seeded pixels and checks its
+   10 -> 32 bands) on the card on 200k seeded pixels
+   (``scripts/torch_bench_sr_granule.py``'s ``training_data``) and checks its
    predictions against the same fit on the CPU (SR_FIT_TOL); runs
    ``hyperres_torch.entry``'s forward (10 -> 285) and checks (8192, 285)
    finite.
@@ -116,12 +120,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    runs through ``engine="auto"`` on the ``"xla"`` program, launches no
    kernel, agrees with the plain version, and raises under
    ``engine="pallas"``.
-8. SR main path at full scale: ``predict_cube_u16`` on a (10, 9140,
-   9309) cube with a nodata stripe over the first 5 % of rows, once to
-   warm up and N_RUNS times under CUDA events; checks the (32, 9140,
-   9309) u16 product, that the stripe and nothing else is 65535, that
-   every run launched the kernel, and the kernel against its plain
-   version at that shape; times both. The bound counts the contraction
+8. SR main path at full scale, through
+   ``scripts/torch_bench_sr_granule.py``'s ``granule_cube`` and
+   ``product_legs``: ``predict_cube_u16`` on a (10, 9140, 9309) cube
+   whose first 5 % of pixels are a nodata stripe, once to warm up and
+   once under CUDA events (upload and both calls timed); checks the
+   (32, 9140, 9309) u16 product, that the stripe and nothing else is
+   65535, that both calls launched the kernel, and the kernel against
+   its plain version at that shape; times both. The bound counts the contraction
    as SR_TC_TERMS TF32 products at the dense TF32 peak (f32 accuracy on
    the tensor cores); the f32 pipes' bound and the earlier SIMT f32
    kernel's time are printed beside it.
@@ -258,6 +264,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    case failed or erred, and every case passed but TWO_CARD_TEST, which
    may skip on a machine with one card; a suite that skips because it
    sees no card fails. Prints each demo's seconds and launches.
+19. The port's full-scale programs (each run's launch counts set to 0
+   before it and read after): ``python bench_torch.py`` in a subprocess
+   at scale 1.0 from phase 4's scene cache, with no other
+   HYPERRES_BENCH_* variable (BENCH_TIMEOUT s): it must exit 0 with one
+   stdout line, a JSON object that meets ``bench.py``'s gates and shows
+   ``bench_torch.DEFAULT_RUNS`` launches of each scanline pass. Then in
+   this process: ``scripts/torch_bench_throughput.py`` at
+   PROGRAMS_SCALE with PROGRAMS_GRANULES granules (each pass launched
+   for the warm-up and every granule), ``torch_validate_fullscale.py``
+   and ``torch_validate_fused_parity.py`` at PROGRAMS_SCALE (each prints
+   ``PASS``; each pass launched), and
+   ``torch_run_production_fullscale.run`` on a PROD_RAW granule with a
+   PROD_S2 px stack in a temporary directory (each pass and quantize
+   launched; the fused product finite on > 0.3 of its pixels, a report).
 
 Prints the seconds of each phase (``clock.spans``), then the kernels'
 JSON line (the two banded passes, the dense route,
@@ -283,6 +303,8 @@ from pathlib import Path
 
 import numpy as np
 
+import bench_torch
+
 T_START = time.perf_counter()
 
 MAIN_SCALE = 1.0
@@ -292,8 +314,6 @@ N_RUNS = 3
 #: f32, in the same order; they differ only by FMA contraction in the
 #: weights and the accumulation (a few ulp of values <= ~1)
 KERNEL_TOL = 1e-5
-GATES = {"finite_frac_min": 0.3, "max_le": 1.0, "psnr_db_min": 45.0,
-         "sam_rad_max": 0.01, "method_psnr_db_min": 28.0}
 EXPECT_UTM = (1523, 1550, 285)
 EXPECT_FUSED = (9140, 9309, 3)
 REPLACES = {"scanline_resample_pass1": "hyperres/kernels/pallas_ops.py:390",
@@ -524,6 +544,17 @@ CARD_SUITE_TIMEOUT = 300
 TWO_CARD_TEST = "test_kernels_launch_on_the_tensors_card"
 
 
+# -- phase 19: the port's full-scale programs -------------------------------
+#: seconds ``python bench_torch.py`` may take at scale 1.0 from the scene
+#: cache (its nvcc build already done by phase 2)
+BENCH_TIMEOUT = 300
+#: the scale of the throughput program and of both validations
+PROGRAMS_SCALE = 0.25
+PROGRAMS_GRANULES = 2
+#: the production run's raw granule (rows, columns) and S2 stack (px)
+PROD_RAW = (256, 256)
+PROD_S2 = 2048
+
 #: lines printed once more at the end of the run, just before the
 #: ``kernels`` line (a caller may keep only the end of the output)
 SUMMARY = []
@@ -652,41 +683,6 @@ def compare_dense(src_ext, cstar, rows, method: str, timed: bool) -> dict:
     return res
 
 
-def accuracy_metrics(fused, target, coeffs, method: str = "ot_poly"):
-    """bench.py's gates (bench.py:351-372): finite fraction, max, the
-    pipeline PSNR (fused vs the fit applied to the target), the method
-    PSNR (fused vs the target) and SAM, over the 2-px eroded interior of
-    the jointly valid pixels. ``method`` names the fit's form."""
-    import torch
-    from hyperres_torch.fusion.fused import apply_params
-    from hyperres_torch.kernels.stats import erode_mask
-
-    vf = torch.isfinite(fused).all(dim=-1)
-    valid = vf & torch.isfinite(target).all(dim=-1)
-    e = erode_mask(valid, 2)
-    n = torch.clamp(e.sum(), min=1)
-    mapped = torch.clamp(apply_params(method, coeffs,
-                                      torch.nan_to_num(target)), 0.0, 1.0)
-    zero = torch.zeros((), device=fused.device)
-
-    def psnr_vs(ref):
-        diff = torch.where(e[..., None], fused - ref, zero)
-        mse = torch.sum(diff * diff) / (n * fused.shape[-1])
-        return float(10.0 * torch.log10(1.0 / mse))
-
-    num = torch.sum(fused * mapped, dim=-1)
-    den = (torch.linalg.norm(fused, dim=-1)
-           * torch.linalg.norm(mapped, dim=-1) + 1e-12)
-    ang = torch.arccos(torch.clamp(num / den, -1.0, 1.0))
-    sam = float(torch.where(e, ang, zero).sum() / n)
-    fmax = float(torch.where(torch.isnan(fused),
-                             torch.tensor(float("-inf"),
-                                          device=fused.device),
-                             fused).max())
-    return (float(vf.to(torch.float32).mean()), fmax, psnr_vs(mapped),
-            psnr_vs(target), sam)
-
-
 def u16_compare(got, want) -> tuple:
     """(mask equal, max |got - want| in steps, differing elements) of two
     u16 tensors of one shape, one slice of the first axis at a time (in
@@ -704,14 +700,15 @@ def u16_compare(got, want) -> tuple:
     return same_mask, worst, n_diff
 
 
-def sr_training_data(rng, n: int = 200_000, bx: int = SR_BX):
-    """The SR bench's synthetic training pixels
-    (scripts/bench_sr_granule.py:56-62), from ``bx`` bands."""
-    X = rng.random((n, bx)).astype(np.float32)
-    Y = np.clip(0.15 + 0.5 * X[:, :1] + 0.2 * X[:, 1:2]
-                + 0.05 * rng.random((n, SR_BY)), 0.01,
-                0.99).astype(np.float32)
-    return X, Y
+def script(name: str):
+    """The module of ``scripts/<name>.py``, one of the port's full-scale
+    programs, whose workloads the phases run."""
+    import importlib
+
+    scripts = str(Path(__file__).resolve().parent / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
 
 
 def sr_bound(n_px: int, n_features: int, by: int,
@@ -746,7 +743,7 @@ def sr_phases(dev) -> list:
 
     # -- 6. fit on the card, entry forward ---------------------------------
     rng = np.random.default_rng(0)
-    Xt, Yt = sr_training_data(rng)
+    Xt, Yt = script("torch_bench_sr_granule").training_data(rng)
     cfg = RidgeSRConfig(degree=SR_DEGREE)
     t0 = time.perf_counter()
     model = RidgeSpectralSR(SR_BX, SR_BY, cfg, device=dev).fit(Xt, Yt)
@@ -839,7 +836,8 @@ def sr_phases(dev) -> list:
     del deg4
 
     # -- 7a. the streamed route; a model past the kernel's limits ----------
-    Xb, Yb = sr_training_data(np.random.default_rng(3), 50_000, SR_STREAM_BX)
+    training_data = script("torch_bench_sr_granule").training_data
+    Xb, Yb = training_data(np.random.default_rng(3), 50_000, SR_STREAM_BX)
     big = RidgeSpectralSR(SR_STREAM_BX, SR_BY,
                           RidgeSRConfig(degree=SR_STREAM_DEGREE),
                           device=dev).fit(Xb, Yb)
@@ -909,7 +907,7 @@ def sr_phases(dev) -> list:
         "library_ms": None, **work_s}
     del big, Xs, cube_s
     # past the kernel's limits: engine="auto" is the "xla" program
-    Xw, Yw = sr_training_data(np.random.default_rng(4), 50_000, SR_XLA_BX)
+    Xw, Yw = training_data(np.random.default_rng(4), 50_000, SR_XLA_BX)
     wide = RidgeSpectralSR(SR_XLA_BX, SR_BY,
                            RidgeSRConfig(degree=SR_XLA_DEGREE),
                            device=dev).fit(Xw, Yw)
@@ -951,49 +949,35 @@ def sr_phases(dev) -> list:
         f"{row['f32_ms']:.3f} ms)")
     del Xc, Xr, fwd, x, y
 
-    # -- 8. main SR path at full scale -------------------------------------
+    # -- 8. main SR path at full scale: torch_bench_sr_granule's legs -------
+    sr_bench = script("torch_bench_sr_granule")
     t0 = time.perf_counter()
-    cube = rng.random(SR_SHAPE, dtype=np.float32)
-    stripe = SR_SHAPE[1] // 20
-    cube[:, :stripe, :] = SR_NODATA
-    X = torch.from_numpy(cube).to(dev)
-    del cube
-    torch.cuda.synchronize()
+    cube = sr_bench.granule_cube(rng, *SR_SHAPE[1:])
     n_px = SR_SHAPE[1] * SR_SHAPE[2]
-    log(f"SR cube {SR_SHAPE} f32 ({X.numel() * 4 / 1e9:.2f} GB) made and "
-        f"moved to the card in {time.perf_counter() - t0:.1f} s; nodata "
-        f"stripe rows [0, {stripe})")
+    stripe = n_px // 20
+    log(f"SR cube {SR_SHAPE} f32 ({cube.nbytes / 1e9:.2f} GB) made in "
+        f"{time.perf_counter() - t0:.1f} s; nodata stripe: the first "
+        f"{stripe} px")
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
-    out = model.predict_cube_u16(X, nodata=SR_NODATA)
-    torch.cuda.synchronize()
-    del out
-    times = []
-    for i in range(N_RUNS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = model.predict_cube_u16(X, nodata=SR_NODATA)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / 1000.0)
-        if i < N_RUNS - 1:
-            del out
+    legs, X, out, _ = sr_bench.product_legs(model, cube, readback=False)
+    del cube
     counts = dict(launch_counts)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    med = statistics.median(times)
-    log(f"SR main path runs (s): {[round(t, 5) for t in times]}; median "
-        f"{med:.5f} s, {n_px / med / 1e6:.1f} Mpx/s; peak memory "
-        f"{peak_gb:.2f} GB; launches {counts}")
+    t_dev = legs["device_program_s"]
+    log(f"SR main path (torch_bench_sr_granule legs): upload "
+        f"{legs['upload_s']:.3f} s, warm-up {legs['compile_s']:.3f} s, "
+        f"device program {t_dev:.5f} s, {n_px / t_dev / 1e6:.1f} Mpx/s; "
+        f"peak memory {peak_gb:.2f} GB; launches {counts}", keep=True)
     expect = (SR_BY,) + SR_SHAPE[1:]
     if tuple(out.shape) != expect or out.dtype != torch.uint16:
         fail(f"SR product {tuple(out.shape)} {out.dtype}, expected {expect} "
              f"uint16")
-    if counts.get(KERNEL_NAME, 0) != N_RUNS + 1:
+    if counts.get(KERNEL_NAME, 0) != 2:
         fail(f"{KERNEL_NAME} launched {counts.get(KERNEL_NAME, 0)} times in "
-             f"{N_RUNS + 1} runs of the SR main path")
+             f"the 2 calls of the SR main path")
     for band in out:
-        nod = band.to(torch.int32) == 65535
+        nod = band.reshape(-1).to(torch.int32) == 65535
         if not (bool(nod[:stripe].all()) and not bool(nod[stripe:].any())):
             fail("the SR product's 65535 pixels are not exactly the stripe")
     log(f"SR product: {expect} uint16, 65535 exactly on the stripe")
@@ -1028,22 +1012,10 @@ def sr_phases(dev) -> list:
              "library_ms": None, **work}, streamed_entry]
 
 
-def build_plan(scene: dict, device, **kw):
-    from hyperres_torch.fusion.fused import FusedOrthoFusionPlan
-    from hyperres_torch.spectral.srf_tables import builtin_srf
-
-    raw_h, raw_w = scene["raw"].shape[:2]
-    return FusedOrthoFusionPlan(
-        scene["ortho_grid"], scene["utm60"], scene["s2_grid"],
-        (raw_h, raw_w), scene["glt"], scene["wavelengths"],
-        scene["good_mask"], s2_nodata=65535.0, s2_scale=1e-4,
-        srf=builtin_srf("S2A", bands=["B2", "B3", "B4"]), device=device,
-        **kw)
-
-
 def run_plan(plan, raw, s2, label: str):
-    """Counts set to 0, one warm-up call and N_RUNS calls under CUDA
-    events, counts read. Returns (last output, run seconds, counts)."""
+    """Counts set to 0, one warm-up call and N_RUNS calls timed as
+    ``bench_torch.py`` times them, counts read. Returns (last output,
+    run seconds, counts)."""
     import torch
     from hyperres_torch.device import launch_counts, reset_launch_counts
 
@@ -1052,21 +1024,12 @@ def run_plan(plan, raw, s2, label: str):
     out = plan(raw, s2, generator=plan.generator(0))
     torch.cuda.synchronize()
     del out
-    times = []
-    for i in range(N_RUNS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = plan(raw, s2, generator=plan.generator(i + 1))
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / 1000.0)
-        if i < N_RUNS - 1:
-            del out
+    times, out = bench_torch.timed_runs(plan, raw, s2, N_RUNS)
     counts = dict(launch_counts)
     peak_gb = torch.cuda.max_memory_allocated(raw.device) / 1e9
     log(f"{label} runs (s): {[round(t, 4) for t in times]}; median "
-        f"{statistics.median(times):.4f} s; peak memory {peak_gb:.2f} GB")
+        f"{statistics.median(times):.4f} s, min {min(times):.4f} s; peak "
+        f"memory {peak_gb:.2f} GB")
     utm_shape = tuple(out["utm_cube"].shape)
     fused_shape = tuple(out["fused_10m"].shape)
     log(f"{label}: utm_cube {utm_shape}, fused_10m {fused_shape}, "
@@ -1079,24 +1042,21 @@ def run_plan(plan, raw, s2, label: str):
 
 def check_gates(plan, out, s2, label: str, method: str = "ot_poly",
                 gated: bool = True) -> None:
-    """Phase 5's accuracy metrics of one plan output; ``gated`` fails
-    below bench.py's gates, otherwise only finite fraction and max are
-    checked (bench.py gates no other method than ot_poly)."""
+    """Phase 5's accuracy metrics of one plan output
+    (``bench_torch.accuracy_metrics``); ``gated`` fails below bench.py's
+    gates, otherwise only finite fraction and max are checked (bench.py
+    gates no other method than ot_poly)."""
     target = plan.s2_reference_10m(out["utm_cube"], s2)
-    finite_frac, fmax, psnr_db, method_psnr_db, sam_rad = accuracy_metrics(
-        out["fused_10m"], target, out["coeffs"], method)
+    acc = bench_torch.accuracy_metrics(out["fused_10m"], target,
+                                       out["coeffs"], method)
+    finite_frac, fmax, psnr_db, method_psnr_db, sam_rad = acc
     log(f"{label} accuracy: pipeline PSNR {psnr_db:.3f} dB, SAM "
         f"{sam_rad:.6f} rad, method PSNR {method_psnr_db:.3f} dB, finite "
         f"frac {finite_frac:.4f}, max {fmax:.4f}; n_valid_60m "
         f"{int(out['n_valid_60m'])}; coeffs "
         f"{np.round(out['coeffs'].cpu().numpy(), 4).tolist()}")
-    ok = finite_frac > GATES["finite_frac_min"] and fmax <= GATES["max_le"]
-    if gated:
-        ok = (ok and psnr_db >= GATES["psnr_db_min"]
-              and sam_rad <= GATES["sam_rad_max"]
-              and method_psnr_db >= GATES["method_psnr_db_min"])
-    if not ok:
-        fail(f"{label}: accuracy gates {GATES} not met")
+    if not bench_torch.gates_met(acc, parametric=gated):
+        fail(f"{label}: accuracy gates {bench_torch.GATES} not met")
 
 
 def sinkhorn_bound(n: int, m: int, sweeps: int) -> dict:
@@ -1414,7 +1374,7 @@ def fuse_phase(dev, scene: dict, utm_cube, target) -> None:
         parametric = method != "histogram"
         if parametric:
             finite_frac, fmax, psnr_db, method_psnr_db, sam_rad = (
-                accuracy_metrics(fused, target, coeffs, method))
+                bench_torch.accuracy_metrics(fused, target, coeffs, method))
             acc = (f"pipeline PSNR {psnr_db:.3f} dB, SAM {sam_rad:.6f} rad, "
                    f"method PSNR {method_psnr_db:.3f} dB")
         else:
@@ -1428,12 +1388,13 @@ def fuse_phase(dev, scene: dict, utm_cube, target) -> None:
             f"{finite_frac:.4f}, max {fmax:.4f}; n_valid_60m "
             f"{res.info['n_valid_60m']}; stages {res.info['stages']}",
             keep=True)
-        ok = finite_frac > GATES["finite_frac_min"] and fmax <= GATES["max_le"]
+        gates = bench_torch.GATES
+        ok = finite_frac > gates["finite_frac_min"] and fmax <= gates["max_le"]
         if parametric:
-            ok = (ok and psnr_db >= GATES["psnr_db_min"]
-                  and sam_rad <= GATES["sam_rad_max"])
+            ok = (ok and psnr_db >= gates["psnr_db_min"]
+                  and sam_rad <= gates["sam_rad_max"])
         if not ok:
-            fail(f"{label}: accuracy gates {GATES} not met")
+            fail(f"{label}: accuracy gates {gates} not met")
         if synth == "srf":
             products[(method, engine)] = fused
         del fused, res
@@ -1474,7 +1435,7 @@ def taploop_phase(dev, scene: dict, raw, s2, base_utm, base_times) -> None:
         warp_interpolate_chunked, warp_two_pass,
     )
 
-    tplan = build_plan(scene, dev, warp_kernel="taploop")
+    tplan = bench_torch.build_plan(scene, dev, warp_kernel="taploop")
     out, times, counts = run_plan(tplan, raw, s2, "warp_kernel='taploop' plan")
     if any(name in counts for name in KERNEL_NAMES.values()):
         fail(f"the tap-loop plan launched the scanline kernel: {counts}")
@@ -1924,7 +1885,8 @@ def parallel_phase(dev, scene, utm_grid, s2_band, card_line: str) -> None:
     torch.cuda.empty_cache()
 
     # SR serving on the product's model: 3 shards, one kernel launch each
-    Xt, Yt = sr_training_data(np.random.default_rng(0))
+    training_data = script("torch_bench_sr_granule").training_data
+    Xt, Yt = training_data(np.random.default_rng(0))
     model = RidgeSpectralSR(SR_BX, SR_BY, RidgeSRConfig(degree=SR_DEGREE),
                             device=dev).fit(Xt, Yt)
     n_px = SR_SHAPE[1] * SR_SHAPE[2]
@@ -1967,7 +1929,7 @@ def parallel_phase(dev, scene, utm_grid, s2_band, card_line: str) -> None:
     del x, mask
 
     # the data-parallel fit against the single-device fit
-    Xf, Yf = sr_training_data(np.random.default_rng(1), PAR_FIT_PX)
+    Xf, Yf = training_data(np.random.default_rng(1), PAR_FIT_PX)
     cfg = RidgeSRConfig(degree=SR_DEGREE)
     multi, secs, peak = timed(dev, lambda: data_parallel_ridge_fit(
         RidgeSpectralSR(SR_BX, SR_BY, cfg, device=dev), Xf, Yf, m4))
@@ -2971,6 +2933,115 @@ def card_suite_phase(card_line: str) -> None:
              f"{skipped} (allowed {allowed}):\n{out[-6000:]}")
 
 
+def programs_phase(workdir: Path, card_line: str) -> None:
+    """Phase 19 (see the module docstring): ``bench_torch.py`` in a
+    subprocess, then the full-scale scripts in this process at small
+    sizes; each run's launch counts set to 0 before it and read after."""
+    import os
+
+    import torch
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.kernels.banded import KERNEL_NAMES
+    from hyperres_torch.kernels.quantize import KERNEL_NAME as QUANT
+
+    passes = sorted(KERNEL_NAMES.values())
+    repo = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HYPERRES_BENCH_")}
+    env.update(PYTHONPATH=str(repo), HYPERRES_BENCH_SCALE=str(MAIN_SCALE))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "bench_torch.py"], cwd=repo,
+                              env=env, capture_output=True, text=True,
+                              timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"bench_torch.py: no exit within {BENCH_TIMEOUT} s")
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"bench_torch.py: exit {proc.returncode}, no JSON line last: "
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    log(f"phase 19 bench_torch.py (scale {MAIN_SCALE}): exit "
+        f"{proc.returncode} in {secs:.1f} s; {json.dumps(line)}", keep=True)
+    gates = bench_torch.GATES
+    runs = bench_torch.DEFAULT_RUNS
+    if not (proc.returncode == 0 and "status" not in line
+            and len(lines) == 1
+            and line["psnr_db"] >= gates["psnr_db_min"]
+            and line["sam_rad"] <= gates["sam_rad_max"]
+            and line["method_psnr_db"] >= gates["method_psnr_db_min"]
+            and all(line["launches"].get(k) == runs for k in passes)):
+        fail(f"bench_torch.py: exit {proc.returncode}, its line does not "
+             f"meet the gates {gates} with {runs} launches of each scanline "
+             f"pass:\n{proc.stderr[-4000:]}")
+    torch.cuda.empty_cache()
+
+    def counted_run(label: str, fn, expect: dict):
+        """fn() with the counts set to 0 before and read after; each count
+        of ``expect`` at least its value. A SystemExit (a program's failed
+        check) fails the phase."""
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+        except SystemExit as e:
+            fail(f"{label}: exit {e.code}")
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        log(f"phase 19 {label}: {time.perf_counter() - t0:.1f} s, launches "
+            f"{counts}", keep=True)
+        short = {k: v for k, v in expect.items() if counts.get(k, 0) < v}
+        if short:
+            fail(f"{label}: launched {counts}, expected at least {expect}")
+        torch.cuda.empty_cache()
+        return res
+
+    saved = {k: os.environ.get(k) for k in ("HYPERRES_TP_SCALE",
+                                            "HYPERRES_TP_GRANULES",
+                                            "HYPERRES_TP_TRANSFER")}
+    os.environ.update(HYPERRES_TP_SCALE=str(PROGRAMS_SCALE),
+                      HYPERRES_TP_GRANULES=str(PROGRAMS_GRANULES))
+    os.environ.pop("HYPERRES_TP_TRANSFER", None)
+    try:
+        tp = counted_run(
+            f"torch_bench_throughput (scale {PROGRAMS_SCALE}, "
+            f"{PROGRAMS_GRANULES} granules)",
+            lambda: script("torch_bench_throughput").main([]),
+            {k: PROGRAMS_GRANULES + 1 for k in passes})
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"phase 19 throughput: {json.dumps(tp)}", keep=True)
+    scale = [str(PROGRAMS_SCALE)]
+    full = counted_run(f"torch_validate_fullscale {PROGRAMS_SCALE}",
+                       lambda: script("torch_validate_fullscale").main(scale),
+                       {k: 1 for k in passes})
+    par = counted_run(f"torch_validate_fused_parity {PROGRAMS_SCALE}",
+                      lambda: script("torch_validate_fused_parity").main(
+                          scale), {k: 1 for k in passes})
+    log(f"phase 19 validations (PASS): fullscale {json.dumps(full)}; fused "
+        f"parity {json.dumps(par)}", keep=True)
+    res = counted_run(
+        f"torch_run_production_fullscale.run (raw {PROD_RAW}, S2 "
+        f"{PROD_S2} px)",
+        lambda: script("torch_run_production_fullscale").run(
+            workdir / "prod", raw_shape=PROD_RAW, s2_size=PROD_S2),
+        {**{k: 1 for k in passes}, QUANT: 1})
+    fused = res.fusion.fused_10m
+    finite = float(np.isfinite(fused).all(-1).mean())
+    log(f"phase 19 production run: {len(res.tiles)} tiles, fused "
+        f"{fused.shape} finite {finite:.4f}, SR r2_mean "
+        f"{(res.sr_metrics or {}).get('r2_mean')}; {card_line}", keep=True)
+    if not (finite > bench_torch.GATES["finite_frac_min"]
+            and res.report_path.exists()):
+        fail("torch_run_production_fullscale: no finite product or report")
+
+
 def main() -> None:
     import torch
 
@@ -3014,7 +3085,7 @@ def main() -> None:
     worst = {}
     t0 = time.perf_counter()
     small = generate_scene(CHECK_SCALE, 0)
-    plan = build_plan(small, dev)
+    plan = bench_torch.build_plan(small, dev)
     src_ext = orthowarp_src_ext(
         torch.from_numpy(small["raw"]).to(dev), plan._flat_idx, plan._valid)
     for method in ("cubic", "bilinear"):
@@ -3031,19 +3102,20 @@ def main() -> None:
     log(f"kernel check done in {time.perf_counter() - t0:.1f} s")
 
     clock.mark("kernel checks, scale 0.25")
-    # -- 4. main path at full scale ------------------------------------------
+    # -- 4. main path at full scale: bench_torch.py's workload -------------
+    # (its scene cached under .scenecache/, which phase 19's run of
+    # bench_torch.py reads)
     t0 = time.perf_counter()
-    scene = generate_scene(MAIN_SCALE, 0)
+    scene = bench_torch.build_workload(MAIN_SCALE, scene_cache=True,
+                                       device=dev)
+    plan = scene.pop("plan")
     t_scene = time.perf_counter() - t0
     s2_band = scene["s2_dn"][0].copy()   # phase 14's percentile input
-    t0 = time.perf_counter()
-    plan = build_plan(scene, dev)
-    t_plan = time.perf_counter() - t0
     raw = torch.from_numpy(scene["raw"]).to(dev)
     s2 = plan.prepare_s2(scene["s2_dn"])
     torch.cuda.synchronize()
-    log(f"scene (scale {MAIN_SCALE}) generated in {t_scene:.1f} s, plan "
-        f"built in {t_plan:.1f} s; raw {tuple(raw.shape)}, UTM grid "
+    log(f"scene (scale {MAIN_SCALE}) generated and cached, plan built, in "
+        f"{t_scene:.1f} s; raw {tuple(raw.shape)}, UTM grid "
         f"{scene['utm60'].height}x{scene['utm60'].width}, 10 m grid "
         f"{scene['s2_grid'].height}x{scene['s2_grid'].width}")
     out, base_times, counts = run_plan(plan, raw, s2, "main path")
@@ -3077,7 +3149,7 @@ def main() -> None:
             "library_ms": None})
 
     # -- 5a. the warp_kernel="pallas" plan: the dense route ---------------
-    dplan = build_plan(scene, dev, warp_kernel="pallas")
+    dplan = bench_torch.build_plan(scene, dev, warp_kernel="pallas")
     log(f"(the next peak includes the default plan's utm_cube, "
         f"{base_utm.numel() * 4 / 1e9:.2f} GB, held for the comparison)")
     out, _, counts = run_plan(dplan, raw, s2, "warp_kernel='pallas' plan")
@@ -3128,7 +3200,7 @@ def main() -> None:
 
     clock.mark("Sinkhorn")
     # -- 5c. the ot_affine plan --------------------------------------------
-    aplan = build_plan(scene, dev, fusion_method="ot_affine")
+    aplan = bench_torch.build_plan(scene, dev, fusion_method="ot_affine")
     out, _, _ = run_plan(aplan, raw, s2, "ot_affine plan")
     check_gates(aplan, out, s2, "ot_affine plan", method="ot_affine",
                 gated=False)
@@ -3207,8 +3279,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     card_suite_phase(card_line)
     clock.mark("card test suite")
-    log("the parity, pairs, multi-device, batch, CLI, toolkit, catalog and "
-        "card suite paths' readings, again:")
+    # -- 19. the port's full-scale programs ----------------------------------
+    with tempfile.TemporaryDirectory() as d:
+        programs_phase(Path(d), card_line)
+    clock.mark("programs")
+    log("the parity, SR, pairs, multi-device, batch, CLI, toolkit, catalog, "
+        "card suite and programs paths' readings, again:")
     for line in SUMMARY:
         log(line)
     log(f"chip_smoke phases (s): {clock.spans}")

@@ -96,23 +96,17 @@ def abundance_maps(x_m: np.ndarray, y_m: np.ndarray,
     return a / a.sum(axis=-1, keepdims=True)
 
 
-# -- bench.py:124 ------------------------------------------------------------
+# -- bench.py:145-201 --------------------------------------------------------
 
-def generate_scene(scale: float = 1.0, seed: int = 0) -> dict:
-    """The bench scene at ``scale`` of the full granule: the raw cube
-    (f32), the 10 m S2 RGB as uint16 DN (scale 1e-4, nodata 65535), the
-    wavelength grid, good-band mask, endmember spectra, GLT and the
-    three grids (ortho, UTM 60 m, S2 10 m)."""
-    rng = np.random.default_rng(seed)
-    raw_h = max(64, int(1242 * scale))
-    raw_w = max(64, int(1280 * scale))
-    n_bands = 285
-
-    wl, good = emit_wavelength_grid(n_bands)
-    spectra = endmember_spectra(wl)
-
+def swath_geometry(raw_h: int, raw_w: int) -> dict:
+    """The synthetic swath and its grids for a raw (raw_h, raw_w) granule,
+    as ``bench.py:145-201`` and the full-scale scripts
+    (``scripts/bench_throughput.py:37-77``, ``scripts/validate_*.py``)
+    build them: the raw pixels' UTM centres ``rx``, ``ry`` (13 degrees
+    off north, 60 m pixels, zone 33N), the geographic ortho grid and its
+    1-based GLT, the 10 m S2 grid covering the swath (origin on the 60 m
+    lattice) and the S2-anchored UTM 60 m grid."""
     utm = CRS.utm(33, True)
-    # swath geometry like the scene factory, sized to the raw dims
     cx, cy = 450000.0, 5770000.0
     th = np.radians(13.0)
 
@@ -122,17 +116,6 @@ def generate_scene(scale: float = 1.0, seed: int = 0) -> dict:
     v = -(rows - raw_h / 2.0) * 60.0
     rx = cx + u * np.cos(th) - v * np.sin(th)
     ry = cy + u * np.sin(th) + v * np.cos(th)
-    # f32 accumulation: the f64 matmul product + full-cube f64 noise +
-    # their sum would peak ~11 GB host RSS at full scale
-    a = abundance_maps(rx, ry).astype(np.float32)
-    raw = a @ spectra.astype(np.float32)
-    del a
-    noise = rng.standard_normal(size=(raw_h, raw_w, n_bands),
-                                dtype=np.float32)
-    noise *= np.float32(0.002)
-    raw += noise
-    del noise
-    np.clip(raw, 0.005, 0.95, out=raw)
 
     lon, lat = utm.to_geographic(rx, ry)
     res_x = 60.0 / 111320.0 / np.cos(np.radians(float(lat.mean())))
@@ -157,14 +140,45 @@ def generate_scene(scale: float = 1.0, seed: int = 0) -> dict:
     glt[..., 1] = np.where(inside, ri + 1, 0)
 
     # S2 grid covering the swath (10 m, origin on the 60 m lattice)
-    sw_l = float(oux.min())
-    sw_t = float(ouy.max())
-    s2_x0 = np.floor(sw_l / 60.0) * 60.0
-    s2_y0 = np.ceil(sw_t / 60.0) * 60.0
+    s2_x0 = np.floor(float(oux.min()) / 60.0) * 60.0
+    s2_y0 = np.ceil(float(ouy.max()) / 60.0) * 60.0
     s2_w = int((float(oux.max()) - s2_x0) // 10.0)
     s2_h = int((s2_y0 - float(ouy.min())) // 10.0)
     s2_grid = Grid(utm, s2_x0, s2_y0, 10.0, 10.0, s2_w, s2_h)
     utm60 = s2_anchored_target_grid(ortho_grid, s2_grid, 60.0, 60.0)
+    return {"rx": rx, "ry": ry, "ortho_grid": ortho_grid, "glt": glt,
+            "s2_grid": s2_grid, "utm60": utm60}
+
+
+# -- bench.py:124 ------------------------------------------------------------
+
+def generate_scene(scale: float = 1.0, seed: int = 0) -> dict:
+    """The bench scene at ``scale`` of the full granule: the raw cube
+    (f32), the 10 m S2 RGB as uint16 DN (scale 1e-4, nodata 65535), the
+    wavelength grid, good-band mask, endmember spectra, GLT and the
+    three grids (ortho, UTM 60 m, S2 10 m)."""
+    rng = np.random.default_rng(seed)
+    raw_h = max(64, int(1242 * scale))
+    raw_w = max(64, int(1280 * scale))
+    n_bands = 285
+
+    wl, good = emit_wavelength_grid(n_bands)
+    spectra = endmember_spectra(wl)
+
+    geo = swath_geometry(raw_h, raw_w)
+    # f32 accumulation: the f64 matmul product + full-cube f64 noise +
+    # their sum would peak ~11 GB host RSS at full scale
+    a = abundance_maps(geo["rx"], geo["ry"]).astype(np.float32)
+    raw = a @ spectra.astype(np.float32)
+    del a
+    noise = rng.standard_normal(size=(raw_h, raw_w, n_bands),
+                                dtype=np.float32)
+    noise *= np.float32(0.002)
+    raw += noise
+    del noise
+    np.clip(raw, 0.005, 0.95, out=raw)
+    s2_grid = geo["s2_grid"]
+    s2_w, s2_h = s2_grid.width, s2_grid.height
 
     # real S2 RGB at 10 m (B2, B3, B4): the world convolved with the
     # S2 SRFs, delivered as uint16 DN at scale 1e-4. The world's
@@ -202,10 +216,10 @@ def generate_scene(scale: float = 1.0, seed: int = 0) -> dict:
         "wavelengths": wl,
         "good_mask": good,
         "spectra": spectra,
-        "ortho_grid": ortho_grid,
-        "utm60": utm60,
+        "ortho_grid": geo["ortho_grid"],
+        "utm60": geo["utm60"],
         "s2_grid": s2_grid,
-        "glt": glt,
+        "glt": geo["glt"],
     }
 
 

@@ -57,3 +57,56 @@ def profile_trace(log_dir: Optional[str] = None):
         yield
     prof.export_chrome_trace(
         str(out / f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def synchronize(device) -> None:
+    """Wait for the device's queued work (a no-op off CUDA)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed_call(fn, device):
+    """``(fn(), seconds)``: on a CUDA device, CUDA events around the call
+    on the current stream, then a synchronise; elsewhere the host clock
+    around the call."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return out, start.elapsed_time(end) / 1000.0
+
+
+def card_info(device) -> Dict[str, object]:
+    """``{"device": name, "power_limit_w": W}`` for the record of a
+    timed run: the CUDA device's name and its power limit from
+    ``nvidia-smi`` (None where that cannot be read); ``"cpu"`` and None
+    off CUDA."""
+    import subprocess
+
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"device": device.type, "power_limit_w": None}
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "-i", str(index), "--query-gpu=power.limit",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60)
+        watts = float(r.stdout.strip().splitlines()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        watts = None
+    return {"device": torch.cuda.get_device_name(index),
+            "power_limit_w": watts}

@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax.numpy as jnp  # noqa: E402
-import chip_smoke  # noqa: E402
+import bench_torch  # noqa: E402
 from hyperres.core import config as jconfig  # noqa: E402
 from hyperres.fusion.fused import FusedFusionPlan as JaxFusionPlan  # noqa: E402
 from hyperres.fusion.fused import FusedOrthoFusionPlan as JaxPlan  # noqa: E402
@@ -610,14 +610,15 @@ def test_identity_fallback_below_min_pixels(slice_run):
 
 
 def test_chip_smoke_accuracy_metrics(slice_run):
-    """chip_smoke's gate metrics equal bench.py's formulas (computed
+    """The gate metrics chip_smoke.py takes from bench_torch.py
+    (``bench_torch.accuracy_metrics``) equal bench.py's formulas (computed
     here in NumPy f64) on the slice's output: 1e-4 relative, and SAM to
     5e-6 rad absolute (arccos near 1 turns the f32 rounding of the
     cosine into ~sqrt(2 * 6e-8) rad per pixel)."""
     fused = slice_run["tout"]["fused_10m"]
     target = slice_run["tref"]
     coeffs = slice_run["tout"]["coeffs"]
-    got = chip_smoke.accuracy_metrics(fused, target, coeffs)
+    got = bench_torch.accuracy_metrics(fused, target, coeffs)
     f, t = fused.numpy().astype(np.float64), target.numpy().astype(np.float64)
     c = coeffs.numpy().astype(np.float64)
     vf = np.isfinite(f).all(-1)

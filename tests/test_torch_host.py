@@ -38,13 +38,13 @@ def scene():
 
 
 def test_port_imports_without_jax():
-    """Every module of hyperres_torch (found by walking the package) and
-    chip_smoke import in a process where importing jax, jaxlib, or
-    hyperres or any hyperres.* module raises; none of them imports
-    ``requests`` at import time (the catalog's default fetchers import
-    it when called)."""
+    """Every module of hyperres_torch (found by walking the package),
+    chip_smoke, bench_torch.py and every scripts/torch_*.py import in a
+    process where importing jax, jaxlib, or hyperres or any hyperres.*
+    module raises; none of them imports ``requests`` at import time
+    (the catalog's default fetchers import it when called)."""
     code = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import importlib, importlib.util, pathlib, pkgutil, sys
         class _NoJax:
             def find_spec(self, name, path=None, target=None):
                 if (name.split(".")[0] in ("jax", "jaxlib")
@@ -85,12 +85,23 @@ def test_port_imports_without_jax():
                   "hyperres_torch.utils",
                   "hyperres_torch.utils.profiling"):
             assert m in mods, m
-        for m in mods + ["chip_smoke"]:
+        for m in mods + ["chip_smoke", "bench_torch"]:
             importlib.import_module(m)
+        scripts = sorted(pathlib.Path("scripts").glob("torch_*.py"))
+        names = {p.name for p in scripts}
+        for name in ("torch_bench_sr_granule.py",
+                     "torch_bench_throughput.py",
+                     "torch_validate_fullscale.py",
+                     "torch_validate_fused_parity.py",
+                     "torch_run_production_fullscale.py"):
+            assert name in names, name
+        for path in scripts:
+            spec = importlib.util.spec_from_file_location(path.stem, path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules if m.split(".")[0] in
                ("jax", "jaxlib", "hyperres", "requests")]
         assert not bad, bad
-        print(len(mods), "ok")
+        print(len(mods), len(scripts), "ok")
     """)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
