@@ -278,6 +278,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ``torch_run_production_fullscale.run`` on a PROD_RAW granule with a
    PROD_S2 px stack in a temporary directory (each pass and quantize
    launched; the fused product finite on > 0.3 of its pixels, a report).
+20. The port's host analyses on the card, each ``main`` in this process
+   with the launch counts set to 0 before it and read after (logged;
+   neither path reaches a hand-written kernel, so they read zero):
+   ``scripts/torch_calibrate_coreg_reliability.py`` at CALIB_PER_CELL
+   windows per cell must cover CALIB_WINDOWS windows and find a tau within
+   CALIB_TAU_TOL of the port's ``RELIABILITY_TAU``;
+   ``scripts/torch_srf_sensitivity.py`` at its default 96 x 128 must run
+   SRF_SENS_PERTURBATIONS perturbations, read a worst band delta within
+   SRF_SENS_BAND_TOL of SRF_SENS_WORST_BAND and a worst fused PSNR of at
+   least SRF_SENS_PSNR_MIN_DB against its baseline. Prints snr*, tau,
+   the three worst cases and each analysis's seconds.
 
 Prints the seconds of each phase (``clock.spans``), then the kernels'
 JSON line (the two banded passes, the dense route,
@@ -554,6 +565,23 @@ PROGRAMS_GRANULES = 2
 #: the production run's raw granule (rows, columns) and S2 stack (px)
 PROD_RAW = (256, 256)
 PROD_S2 = 2048
+
+# -- phase 20: the port's host analyses -------------------------------------
+#: windows per cell of the reliability calibration: 40 gives the 1440
+#: windows the constant RELIABILITY_TAU rests on
+CALIB_PER_CELL = 40
+CALIB_WINDOWS = 1440
+#: the JAX script reads tau 20.845 on the CPU against the constant 20.8;
+#: 0.3 in tau is about 0.27 in snr*, three steps of its 0.1 grid
+CALIB_TAU_TOL = 0.3
+SRF_SENS_PERTURBATIONS = 26
+#: the JAX script's worst band delta at 96 x 128 (docs/PARITY.md); the
+#: synthesis deltas are NumPy on the host in both scripts
+SRF_SENS_WORST_BAND = 0.00575
+SRF_SENS_BAND_TOL = 1e-5
+#: JAX reads 48.8 dB on the CPU; the margin covers the port's other OT
+#: draw (the plan's torch.Generator, not JAX's PRNG)
+SRF_SENS_PSNR_MIN_DB = 45.0
 
 #: lines printed once more at the end of the run, just before the
 #: ``kernels`` line (a caller may keep only the end of the output)
@@ -3042,6 +3070,57 @@ def programs_phase(workdir: Path, card_line: str) -> None:
         fail("torch_run_production_fullscale: no finite product or report")
 
 
+def analyses_phase(card_line: str) -> None:
+    """Phase 20 (see the module docstring): the reliability calibration
+    and the SRF sensitivity analysis on the card, each run's launch counts
+    set to 0 before it and read after."""
+    import contextlib
+    import io
+
+    import torch
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.kernels.phasecorr import RELIABILITY_TAU
+
+    def counted_main(name: str, argv: list):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = script(name).main(argv)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(launch_counts)
+
+    cal, secs, counts = counted_main("torch_calibrate_coreg_reliability",
+                                     [str(CALIB_PER_CELL)])
+    log(f"phase 20 torch_calibrate_coreg_reliability {CALIB_PER_CELL}: "
+        f"{secs:.1f} s, {cal['n_windows']} windows, err<0.5px overall "
+        f"{cal['ok_rate']:.3f}, snr* {cal['snr_star']} (accepts "
+        f"{cal['accept_rate']}), tau {cal['tau']} (RELIABILITY_TAU "
+        f"{RELIABILITY_TAU}), launches {counts}; {card_line}", keep=True)
+    if not (cal["n_windows"] == CALIB_WINDOWS and cal["tau"] is not None
+            and abs(cal["tau"] - RELIABILITY_TAU) <= CALIB_TAU_TOL):
+        fail(f"reliability calibration: {cal['n_windows']} windows (want "
+             f"{CALIB_WINDOWS}), tau {cal['tau']} not within "
+             f"{CALIB_TAU_TOL} of {RELIABILITY_TAU}: {cal['thresholds']}")
+    torch.cuda.empty_cache()
+    sens, secs, counts = counted_main("torch_srf_sensitivity", [])
+    worst = {k: sens[k] for k in ("worst_band_abs_delta_reflectance",
+                                  "worst_fused_rms_stretched",
+                                  "worst_fused_psnr_db_vs_baseline")}
+    log(f"phase 20 torch_srf_sensitivity (96 x 128): {secs:.1f} s, "
+        f"{sens['perturbations']} perturbations, {json.dumps(worst)}, "
+        f"launches {counts}; {card_line}", keep=True)
+    if not (sens["perturbations"] == SRF_SENS_PERTURBATIONS
+            and abs(worst["worst_band_abs_delta_reflectance"]
+                    - SRF_SENS_WORST_BAND) <= SRF_SENS_BAND_TOL
+            and worst["worst_fused_psnr_db_vs_baseline"]
+            >= SRF_SENS_PSNR_MIN_DB):
+        fail(f"SRF sensitivity: {sens['perturbations']} perturbations (want "
+             f"{SRF_SENS_PERTURBATIONS}), {worst}: want the band delta "
+             f"within {SRF_SENS_BAND_TOL} of {SRF_SENS_WORST_BAND} and the "
+             f"fused PSNR >= {SRF_SENS_PSNR_MIN_DB} dB")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
 
@@ -3283,8 +3362,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as d:
         programs_phase(Path(d), card_line)
     clock.mark("programs")
+    # -- 20. the port's host analyses ----------------------------------------
+    analyses_phase(card_line)
+    clock.mark("analyses")
     log("the parity, SR, pairs, multi-device, batch, CLI, toolkit, catalog, "
-        "card suite and programs paths' readings, again:")
+        "card suite, programs and analyses paths' readings, again:")
     for line in SUMMARY:
         log(line)
     log(f"chip_smoke phases (s): {clock.spans}")

@@ -110,16 +110,35 @@ def test_port_imports_without_jax():
 
 
 def _imported_modules(path):
-    """Every module name an ``import`` or ``from ... import`` statement of
-    the file at ``path`` names (relative imports as written, dots
-    included)."""
+    """Every module name the file at ``path`` imports, at any depth
+    (function bodies included): each ``import`` and ``from ... import``
+    statement (relative imports as written, dots included), and each
+    call of ``import_module`` (``importlib.import_module`` or the bare
+    name) or ``__import__`` whose first argument is a string constant."""
     names = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
             names.append("." * node.level + (node.module or ""))
+        elif isinstance(node, ast.Call) and node.args:
+            f = node.func
+            called = f.attr if isinstance(f, ast.Attribute) else getattr(
+                f, "id", None)
+            arg = node.args[0]
+            if (called in ("import_module", "__import__")
+                    and isinstance(arg, ast.Constant)
+                    and isinstance(arg.value, str)):
+                names.append(arg.value)
     return names
+
+
+def _jax_side_imports(path):
+    """The names of ``_imported_modules(path)`` that reach JAX or the JAX
+    package: ``jax``, ``jaxlib`` or their submodules, ``hyperres`` or
+    ``hyperres.*`` (``hyperres_torch``, the port, is none of them)."""
+    return [m for m in _imported_modules(path)
+            if m.split(".")[0] in ("jax", "jaxlib", "hyperres")]
 
 
 def test_card_suite_and_torch_demos_import_no_jax():
@@ -131,9 +150,27 @@ def test_card_suite_and_torch_demos_import_no_jax():
              + sorted((REPO / "examples").glob("torch_demo_*.py")))
     assert len(files) >= 4 + 2
     for path in files:
-        bad = [m for m in _imported_modules(path)
-               if m.split(".")[0] in ("jax", "jaxlib", "hyperres")]
+        bad = _jax_side_imports(path)
         assert not bad, (path, bad)
+
+
+@pytest.mark.parametrize("pattern", ["hyperres_torch/**/*.py",
+                                     "chip_smoke.py", "bench_torch.py",
+                                     "scripts/torch_*.py",
+                                     "examples/torch_*.py",
+                                     "tests_gpu/**/*.py"])
+def test_port_sources_import_no_jax(pattern):
+    """The no-JAX rule on source, which ``test_port_imports_without_jax``
+    cannot see where an import sits in a function body: no port file
+    matching ``pattern`` imports ``jax``, ``jaxlib``, ``hyperres`` or
+    ``hyperres.*`` in any statement at any depth, nor names one as a
+    string in an ``import_module`` / ``__import__`` call (parsed with
+    ``ast``; ``_imported_modules``)."""
+    files = sorted(REPO.glob(pattern))
+    assert files, pattern
+    bad = {str(p.relative_to(REPO)): _jax_side_imports(p) for p in files}
+    bad = {k: v for k, v in bad.items() if v}
+    assert not bad, f"port files importing JAX or the JAX package: {bad}"
 
 
 def test_prepare_glt_copy(rng):
