@@ -54,6 +54,7 @@ from ..kernels.warp import (
     separable_resample_fast, separable_resample_matmul,
 )
 from ..spectral.srf_tables import load_srf, warn_if_parametric_srf
+from ..utils.profiling import span
 from .histogram import _match_rgb_device
 from .sampling import sample_valid_pixels_device
 
@@ -225,40 +226,47 @@ def _fit_linear(st: FusionStatics, emit_n, s2_n, valid60) -> torch.Tensor:
 
 def _fusion_core(st: FusionStatics, cube_hwb, s2rgb10_hwb, Wsrf, Wr60,
                  Wc60, Wr10, Wc10, generator: torch.Generator) -> Dict:
-    """The four fusion phases (``fused.py:145``)."""
-    synth, s2_60, valid60 = _synth_and_valid(st, cube_hwb, s2rgb10_hwb,
-                                             Wsrf, Wr60, Wc60)
-    n_valid = valid60.sum()
+    """The four fusion phases (``fused.py:145``), each stage a span:
+    ``fused.synth``, ``fused.stretch``, ``fused.fit``, ``fused.apply``."""
+    dev = cube_hwb.device
+    with span("fused.synth", dev):
+        synth, s2_60, valid60 = _synth_and_valid(st, cube_hwb, s2rgb10_hwb,
+                                                 Wsrf, Wr60, Wc60)
+        n_valid = valid60.sum()
     # Phase 3: shared stretch + fit
-    emit_n, s2_n = _stretch(st, synth, s2_60, valid60)
+    with span("fused.stretch", dev):
+        emit_n, s2_n = _stretch(st, synth, s2_60, valid60)
     c = emit_n.shape[-1]
-    if st.fusion_method in ("ot_poly", "ot_affine"):
-        params = _fit_ot(st, emit_n, s2_n, valid60, n_valid, generator)
-    elif st.fusion_method == "linear":
-        params = _fit_linear(st, emit_n, s2_n, valid60)
-    else:
-        # histogram, non-parametric: per-channel CDF transfer against the
-        # 60 m stretched reference; the 10 m product ranks its own pixels
-        # but maps into the same 60 m reference distribution
-        params = torch.zeros((c, 1), dtype=torch.float32,
-                             device=emit_n.device)
+    with span("fused.fit", dev):
+        if st.fusion_method in ("ot_poly", "ot_affine"):
+            params = _fit_ot(st, emit_n, s2_n, valid60, n_valid, generator)
+        elif st.fusion_method == "linear":
+            params = _fit_linear(st, emit_n, s2_n, valid60)
+        else:
+            # histogram, non-parametric: per-channel CDF transfer against
+            # the 60 m stretched reference; the 10 m product ranks its own
+            # pixels but maps into the same 60 m reference distribution
+            params = torch.zeros((c, 1), dtype=torch.float32,
+                                 device=emit_n.device)
 
     def apply(x, m):
         if st.fusion_method == "histogram":
             return _match_rgb_device(x, m, s2_n, valid60)
         return apply_params(st.fusion_method, params, x)
 
-    matched60 = torch.clamp(
-        torch.where(valid60[..., None], apply(emit_n, valid60), emit_n),
-        0.0, 1.0)
-    # Phase 4: bilinear upsample of the stretched sim bands to 10 m and
-    # the same mapping there; invalid 60 m sources contribute nothing,
-    # zero valid mass -> NaN -> masked
-    sim10 = _upsample_10m(st, emit_n, valid60, Wr10, Wc10)
-    mask10 = torch.isfinite(sim10).all(dim=-1)
-    mapped10 = torch.clamp(apply(torch.nan_to_num(sim10), mask10), 0.0, 1.0)
-    fused = torch.where(mask10[..., None], mapped10,
-                        torch.tensor(float("nan"), device=sim10.device))
+    with span("fused.apply", dev):
+        matched60 = torch.clamp(
+            torch.where(valid60[..., None], apply(emit_n, valid60), emit_n),
+            0.0, 1.0)
+        # Phase 4: bilinear upsample of the stretched sim bands to 10 m
+        # and the same mapping there; invalid 60 m sources contribute
+        # nothing, zero valid mass -> NaN -> masked
+        sim10 = _upsample_10m(st, emit_n, valid60, Wr10, Wc10)
+        mask10 = torch.isfinite(sim10).all(dim=-1)
+        mapped10 = torch.clamp(apply(torch.nan_to_num(sim10), mask10),
+                               0.0, 1.0)
+        fused = torch.where(mask10[..., None], mapped10,
+                            torch.tensor(float("nan"), device=sim10.device))
     out = {"fused_10m": fused, "matched_60m": matched60,
            "coeffs": params, "n_valid_60m": n_valid}
     if st.return_intermediates:
@@ -457,6 +465,12 @@ class FusedFusionPlan:
 
     def __call__(self, emit_cube_hwb, s2_rgb10_hwb,
                  generator: Optional[torch.Generator] = None) -> Dict:
+        with span("fused", self.device):
+            return self._run(emit_cube_hwb, s2_rgb10_hwb, generator)
+
+    def _run(self, emit_cube_hwb, s2_rgb10_hwb,
+             generator: Optional[torch.Generator]) -> Dict:
+        """A call's work, inside the caller's ``fused`` span."""
         if generator is None:
             generator = self.generator()
         return _fusion_core(self.statics,
@@ -605,18 +619,19 @@ class FusedOrthoFusionPlan:
         return self._fusion.prepare_s2(s2_stack_bhw, rgb_band_idx)
 
     def warp(self, raw_hwb) -> torch.Tensor:
-        """The UTM cube alone: GLT gather + warp."""
+        """The UTM cube alone: GLT gather + warp (span ``fused.warp``)."""
         ws = self.warp_statics
-        if ws.warp_kernel == "taploop":
-            return orthowarp_taploop(
+        with span("fused.warp", self.device):
+            if ws.warp_kernel == "taploop":
+                return orthowarp_taploop(
+                    _as_f32(raw_hwb, self.device), self._flat_idx,
+                    self._valid, self._wr, self._wc, method=ws.resampling,
+                    fill=NO_DATA_VALUE, row_chunks=ws.row_chunks)
+            return orthowarp_two_pass(
                 _as_f32(raw_hwb, self.device), self._flat_idx, self._valid,
-                self._wr, self._wc, method=ws.resampling,
-                fill=NO_DATA_VALUE, row_chunks=ws.row_chunks)
-        return orthowarp_two_pass(
-            _as_f32(raw_hwb, self.device), self._flat_idx, self._valid,
-            self._wr, self._wc, self._cstar,
-            method=self.warp_statics.resampling, fill=NO_DATA_VALUE,
-            backend=self.warp_statics.backend)
+                self._wr, self._wc, self._cstar,
+                method=ws.resampling, fill=NO_DATA_VALUE,
+                backend=ws.backend)
 
     def ot_samples(self, utm_cube_hwb, s2_rgb10_hwb,
                    generator: Optional[torch.Generator] = None):
@@ -631,7 +646,10 @@ class FusedOrthoFusionPlan:
 
     def __call__(self, raw_hwb, s2_rgb10_hwb,
                  generator: Optional[torch.Generator] = None) -> Dict:
-        utm_cube = self.warp(raw_hwb)
-        out = self._fusion(utm_cube, s2_rgb10_hwb, generator=generator)
-        out["utm_cube"] = utm_cube
-        return out
+        """One granule; the call is the root span ``fused``, its stages
+        ``fused.warp`` and the fusion core's four."""
+        with span("fused", self.device):
+            utm_cube = self.warp(raw_hwb)
+            out = self._fusion._run(utm_cube, s2_rgb10_hwb, generator)
+            out["utm_cube"] = utm_cube
+            return out

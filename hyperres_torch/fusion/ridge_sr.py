@@ -55,6 +55,7 @@ from ..kernels.lstsq import (
 from ..kernels.sr_predict import MAX_BANDS_IN, MAX_DEGREE, kernel_takes
 from ..kernels.sr_predict import sr_predict_u16 as _sr_predict_kernel
 from ..kernels.sr_predict import valid_pixels
+from ..utils.profiling import span
 
 DeviceLike = Union[str, torch.device, None]
 ArrayLike = Union[np.ndarray, torch.Tensor]
@@ -251,7 +252,11 @@ class RidgeSpectralSR(nn.Module):
             weights: Optional[ArrayLike] = None) -> "RidgeSpectralSR":
         """X (N, Bx) S2 reflectance, Y (N, By) EMIT reflectance in (0, 1)
         (the logit transform happens inside), optional per-sample
-        weights (N,)."""
+        weights (N,). The call is the root span ``sr.fit``."""
+        with span("sr.fit", self.device):
+            return self._fit(X, Y, weights)
+
+    def _fit(self, X, Y, weights) -> "RidgeSpectralSR":
         X = self._as_f32(X)
         Y = self._as_f32(Y)
         w = None if weights is None else self._as_f32(weights)
@@ -323,19 +328,22 @@ class RidgeSpectralSR(nn.Module):
                      engine: str) -> torch.Tensor:
         """The u16 codes of a 2-D X ((Bx, N) with ``"cmajor"``, (N, Bx)
         with ``"rowmajor"``) through the resolved engine, which
-        ``last_engine`` then names."""
-        engine = self.resolve_engine(engine)
-        self.last_engine = engine
-        if engine == "pallas":
-            return _sr_predict_kernel(X2, self.x_mean, self.x_std, self.W,
-                                      self.intercept, self.factors, layout,
-                                      valid=valid, nodata=nodata,
-                                      batch_pixels=self.cfg.batch_pixels)
-        Xp = X2.T if layout == "cmajor" else X2
-        if valid is None:
-            valid = valid_pixels(Xp, nodata)
-        return predict_quant_batches(self, torch.nan_to_num(Xp), valid,
-                                     self.cfg.batch_pixels, layout)
+        ``last_engine`` then names. The call is the root span
+        ``sr.predict``; the kernel's launch is ``sr.predict.kernel``."""
+        with span("sr.predict", self.device):
+            engine = self.resolve_engine(engine)
+            self.last_engine = engine
+            if engine == "pallas":
+                with span("sr.predict.kernel", self.device):
+                    return _sr_predict_kernel(
+                        X2, self.x_mean, self.x_std, self.W, self.intercept,
+                        self.factors, layout, valid=valid, nodata=nodata,
+                        batch_pixels=self.cfg.batch_pixels)
+            Xp = X2.T if layout == "cmajor" else X2
+            if valid is None:
+                valid = valid_pixels(Xp, nodata)
+            return predict_quant_batches(self, torch.nan_to_num(Xp), valid,
+                                         self.cfg.batch_pixels, layout)
 
     def predict_cube_u16(self, X_bhw: ArrayLike,
                          nodata: Optional[float] = None,

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..device import count_launch, launch_error
+from ..utils.profiling import count
 
 KERNEL_NAME = "sinkhorn_duals"
 #: launch counter of the long-rows route
@@ -99,13 +100,15 @@ def _iterate(run_group, num_itermax: int, stop_thr: float,
     """The reference's loop: groups of ``check_every`` sweeps while
     ``it < num_itermax and err > stop_thr`` (in f32). ``run_group(k)``
     runs k sweeps and returns the last one's err as a 0-d tensor.
-    Returns (err, sweeps run)."""
+    Returns (err, sweeps run), the sweeps also counted as ``ot.sweeps``
+    in the innermost open span."""
     thr = float(np.float32(stop_thr))
     err = torch.full((), math.inf, dtype=torch.float32, device=device)
     it = 0
     while it < num_itermax and float(err) > thr:
         err = run_group(check_every)
         it += check_every
+    count("ot.sweeps", it)
     return err, it
 
 
