@@ -9,9 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 
 1. Device: needs ``torch.cuda.is_available()``; prints the
    ``nvidia-smi --query-gpu=name,power.limit`` line.
-2. Build: compiles the five kernels (``csrc/scanline_warp.cu``,
+2. Build: compiles the six kernels (``csrc/scanline_warp.cu``,
    ``csrc/sr_predict.cu``, ``csrc/sinkhorn_duals.cu``,
-   ``csrc/quantize_u16.cu``, ``csrc/srf_synthesize.cu``) with nvcc for
+   ``csrc/quantize_u16.cu``, ``csrc/srf_synthesize.cu``,
+   ``csrc/upsample_apply.cu``) with nvcc for
    sm_90a, one nvcc each, all started together, and prints the build
    times and ptxas reports.
 2a. The ingest's two hazards: PREFETCH_CHUNKS seeded slabs go through
@@ -34,7 +35,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    it once to warm up and N_RUNS times as ``bench_torch.timed_runs``
    times them (CUDA events), checks the output shapes and that every run
    launched each pass of the kernel once. Then times the kernel against
-   its plain version at the main path's shapes.
+   its plain version at the main path's shapes, and the 10 m apply
+   kernel (launched once a run) against the eager chain it replaces on
+   the plan's own stretched 60 m RGB and fit: bit-equal, NaN in the same
+   places.
 5. Accuracy gates of ``bench.py`` (``bench_torch.accuracy_metrics`` and
    ``bench_torch.GATES``) against the plan's own ``s2_reference_10m``:
    finite fraction > 0.3, max <= 1, pipeline PSNR >= 45 dB, SAM <= 0.01
@@ -412,6 +416,10 @@ SRF_TOL = 1e-5
 REFL_HI_EFF = 6.5535        # export_reflectance_u16's hi for (0, 1) -> 0..10000
 QUANT_NAME = "quantize_u16"
 QUANT_SOURCE = "hyperres_torch/csrc/quantize_u16.cu"
+APPLY_SOURCE = "hyperres_torch/csrc/upsample_apply.cu"
+#: no TPU kernel: the reference leaves phase 4 to XLA's fusion
+APPLY_REPLACES = ("none (hyperres/fusion/fused.py:233-275, phase 4, "
+                  "left to XLA's fusion)")
 QUANT_REPLACES = "hyperres/kernels/pallas_ops.py:122 (pallas_quantize_u16)"
 SRF_SOURCE = "hyperres_torch/csrc/srf_synthesize.cu"
 SRF_REPLACES = "hyperres/kernels/pallas_ops.py:70 (pallas_srf_synthesize)"
@@ -2694,6 +2702,62 @@ def ortho_phase(dev, workdir) -> dict:
             "good": good, "counts": runs["u16"][1], "scene": scene}
 
 
+def apply_phase(plan, utm_cube, s2, coeffs, counts) -> dict:
+    """The 10 m apply kernel at the main path's shapes: launched once per
+    plan call, its product equal to the eager chain's bit for bit (NaN in
+    the same places) on the plan's own stretched 60 m RGB and fit, and
+    timed against that chain. Returns its entry of the kernels line."""
+    import torch
+    from hyperres_torch.fusion import fused as tfused
+    from hyperres_torch.kernels.upsample_apply import (KERNEL_NAME,
+                                                       upsample_apply)
+
+    if counts.get(KERNEL_NAME, 0) != N_RUNS + 1:
+        fail(f"{KERNEL_NAME} launched {counts.get(KERNEL_NAME, 0)} times in "
+             f"{N_RUNS + 1} runs of the main path")
+    fp = plan._fusion
+    st = fp.statics
+    synth, s2_60, valid60 = tfused._synth_and_valid(
+        st, utm_cube, s2, *fp._matrices()[:3])
+    emit_n, _ = tfused._stretch(st, synth, s2_60, valid60)
+    del synth, s2_60
+
+    def kernel():
+        return upsample_apply(emit_n, valid60, *st.up_fast, coeffs)
+
+    def eager():
+        return tfused._map_10m(
+            tfused._upsample_10m(st, emit_n, valid60, None, None),
+            lambda x, m: tfused.apply_params(st.fusion_method, coeffs, x))
+
+    got, want = kernel(), eager()
+    nan = torch.isnan(got)
+    zero = torch.zeros((), device=got.device)
+    same = (torch.equal(nan, torch.isnan(want))
+            and torch.equal(torch.where(nan, zero, got),
+                            torch.where(nan, zero, want)))
+    log(f"check {KERNEL_NAME} at {tuple(got.shape)} from "
+        f"{tuple(emit_n.shape)}: bit-equal to the eager chain {same}, "
+        f"NaN share {float(nan.float().mean()):.4f}")
+    if not same:
+        fail(f"{KERNEL_NAME} differs from the eager chain it replaces")
+    del got, want
+    ms = cuda_ms(kernel, 10)
+    plain_ms = cuda_ms(eager, 2)
+    n_out = float(np.prod([st.up_fast[0][4], st.up_fast[1][4], 3]))
+    n_src = float(valid60.numel())
+    # the product written once, the 60 m RGB and validity read once;
+    # ~60 operations a pixel (lerps, divides, degree-4 Horner, clamp)
+    work = bound(4.0 * n_out + 13.0 * n_src, 20.0 * n_out)
+    log(f"{KERNEL_NAME}: kernel {ms:.3f} ms, eager chain {plain_ms:.3f} ms, "
+        f"bound {work['bound_ms']:.3f} ms ({work['bound_by']}), "
+        f"{work['bound_ms'] / ms:.1%} of it", keep=True)
+    return {"name": KERNEL_NAME, "route": "cuda", "source": APPLY_SOURCE,
+            "replaces": APPLY_REPLACES, "launches": counts[KERNEL_NAME],
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **work}
+
+
 def quantize_phase(cube, launches: int) -> dict:
     """Phase 10: the quantize kernel against its plain version on the
     ortho phase's UTM cube in three forms; timed in the reflectance form.
@@ -3149,7 +3213,8 @@ def main() -> None:
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     _build.load_libraries(["scanline_warp", "sr_predict", "sinkhorn_duals",
-                           "quantize_u16", "srf_synthesize"])
+                           "quantize_u16", "srf_synthesize",
+                           "upsample_apply"])
     log(f"build: all kernels in {time.perf_counter() - t0:.3f} s")
     for name, info in _build.build_info.items():
         log(f"build: {name}: nvcc {info['seconds']:.3f} s")
@@ -3206,6 +3271,7 @@ def main() -> None:
     # -- 5. accuracy gates -------------------------------------------------
     check_gates(plan, out, s2, "main path")
     base_utm = out["utm_cube"]
+    coeffs = out["coeffs"]
     del out
 
     # kernel vs plain at the main path's shapes (full scale, cubic)
@@ -3226,6 +3292,8 @@ def main() -> None:
             "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
+    kernels.append(apply_phase(plan, base_utm, s2, coeffs, counts))
+    del coeffs
 
     # -- 5a. the warp_kernel="pallas" plan: the dense route ---------------
     dplan = bench_torch.build_plan(scene, dev, warp_kernel="pallas")

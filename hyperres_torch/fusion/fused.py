@@ -49,12 +49,15 @@ from ..kernels.lstsq import (
 from ..kernels.sinkhorn import ot_barycentric_targets
 from ..kernels.srf import srf_synthesize
 from ..kernels.stats import shared_percentile_stretch
+from ..kernels.upsample_apply import (
+    APPLY_COUNTER, takes_kernel, upsample_apply,
+)
 from ..kernels.warp import (
     WARP_BACKENDS, orthowarp_taploop, orthowarp_two_pass,
     separable_resample_fast, separable_resample_matmul,
 )
 from ..spectral.srf_tables import load_srf, warn_if_parametric_srf
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .histogram import _match_rgb_device
 from .sampling import sample_valid_pixels_device
 
@@ -126,6 +129,15 @@ def _upsample_10m(st: FusionStatics, x60, valid60, Wr10, Wc10):
                                        valid_mask=valid60)
     return separable_resample_matmul(x60, Wr10, Wc10, fill=np.nan,
                                      valid_mask=valid60)
+
+
+def _map_10m(sim10, apply):
+    """Phase 4's mapping of the upsampled 10 m sim bands: NaN where any
+    channel is not finite, else ``apply`` clamped to [0, 1]."""
+    mask10 = torch.isfinite(sim10).all(dim=-1)
+    mapped10 = torch.clamp(apply(torch.nan_to_num(sim10), mask10), 0.0, 1.0)
+    return torch.where(mask10[..., None], mapped10,
+                       torch.tensor(float("nan"), device=sim10.device))
 
 
 def _synth_and_valid(st: FusionStatics, cube_hwb, s2rgb10_hwb, Wsrf, Wr60,
@@ -255,18 +267,22 @@ def _fusion_core(st: FusionStatics, cube_hwb, s2rgb10_hwb, Wsrf, Wr60,
         return apply_params(st.fusion_method, params, x)
 
     with span("fused.apply", dev):
+        # Phase 4: bilinear upsample of the stretched sim bands to 10 m
+        # and the same mapping there; invalid 60 m sources contribute
+        # nothing, zero valid mass -> NaN -> masked. On the card, with
+        # integer-aligned grids and a polynomial mapping, one kernel does
+        # all of it; its product is the eager ops', bit for bit. It is
+        # queued first, so the 60 m apply's small launches overlap it.
+        if takes_kernel(dev, st.up_fast, st.fusion_method, params.shape):
+            fused = upsample_apply(emit_n.contiguous(), valid60.contiguous(),
+                                   *st.up_fast, params.contiguous())
+            count(APPLY_COUNTER)
+        else:
+            fused = _map_10m(_upsample_10m(st, emit_n, valid60, Wr10, Wc10),
+                             apply)
         matched60 = torch.clamp(
             torch.where(valid60[..., None], apply(emit_n, valid60), emit_n),
             0.0, 1.0)
-        # Phase 4: bilinear upsample of the stretched sim bands to 10 m
-        # and the same mapping there; invalid 60 m sources contribute
-        # nothing, zero valid mass -> NaN -> masked
-        sim10 = _upsample_10m(st, emit_n, valid60, Wr10, Wc10)
-        mask10 = torch.isfinite(sim10).all(dim=-1)
-        mapped10 = torch.clamp(apply(torch.nan_to_num(sim10), mask10),
-                               0.0, 1.0)
-        fused = torch.where(mask10[..., None], mapped10,
-                            torch.tensor(float("nan"), device=sim10.device))
     out = {"fused_10m": fused, "matched_60m": matched60,
            "coeffs": params, "n_valid_60m": n_valid}
     if st.return_intermediates:

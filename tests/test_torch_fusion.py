@@ -640,3 +640,152 @@ def test_chip_smoke_accuracy_metrics(slice_run):
     want = (vf.mean(), np.nanmax(f), psnr_vs(mapped), psnr_vs(t), sam)
     np.testing.assert_allclose(got[:4], want[:4], rtol=1e-4)
     assert abs(got[4] - want[4]) <= 5e-6
+
+
+# ---------------------------------------------------------------------------
+# the 10 m apply kernel: the plan's dispatch rule and the kernel's
+# arithmetic (the kernel itself runs on the card: tests_gpu)
+# ---------------------------------------------------------------------------
+
+def _up_fast_cut():
+    """``up_fast`` of a 37 x 45 px 60 m UTM grid and a 10 m grid that
+    reaches past it on all four sides, as the plan builds it."""
+    from hyperres_torch.core.crs import CRS
+    from hyperres_torch.core.grid import Grid
+    from hyperres_torch.testing.bench_scene import emit_wavelength_grid
+
+    crs = CRS.utm(33, True)
+    emit = Grid(crs, 500_000.0, 5_000_040.0, 60.0, 60.0, 45, 37)
+    s2 = Grid(crs, 499_870.0, 5_000_110.0, 10.0, 10.0, 300, 240)
+    wl, good = emit_wavelength_grid(285)
+    return tfused._fusion_matrices(emit, s2, wl, good, "S2A",
+                                   "box")["up_fast"]
+
+
+@pytest.mark.parametrize("device,route,method,shape,takes", [
+    ("cuda", "bilinear", "ot_poly", (3, 5), True),
+    ("cuda", "bilinear", "linear", (3, 2), True),
+    ("cuda", "bilinear", "ot_affine", (4, 3), False),
+    ("cuda", "bilinear", "histogram", (3, 1), False),
+    ("cuda", "dense", "ot_poly", (3, 5), False),
+    ("cpu", "bilinear", "ot_poly", (3, 5), False),
+    ("cpu", "bilinear", "linear", (3, 2), False),
+    ("cuda", "bilinear", "ot_poly", (3, 17), False),
+    ("cuda", "skipping", "ot_poly", (3, 5), False),
+])
+def test_upsample_apply_dispatch_rule(device, route, method, shape, takes):
+    """The plan takes the 10 m apply kernel only on a CUDA device, with
+    integer-aligned bilinear specs, for ``ot_poly`` (degree <= 15) or
+    ``linear``; ``ot_affine``, ``histogram``, the dense route and the CPU
+    keep the eager ops, as do specs whose first tap skips a source
+    index."""
+    from hyperres_torch.kernels.upsample_apply import takes_kernel
+
+    up = None if route == "dense" else _up_fast_cut()
+    if route == "skipping":
+        col = up[1]
+        up = (up[0], col[:2] + ((col[2][0] - 1,) + col[2][1:],) + col[3:])
+    assert takes_kernel(torch.device(device), up, method, shape) is takes
+
+
+def test_plan_on_cpu_keeps_the_eager_apply(slice_run):
+    """On the CPU a plan call launches no kernel and counts no
+    ``apply.kernel``; its product is the one held to the JAX plan
+    above."""
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.kernels import upsample_apply as ua
+    from hyperres_torch.utils import profiling
+
+    plan = slice_run["tplan"]
+    assert plan.statics.up_fast is not None
+    raw = slice_run["scene"]["raw"]
+    profiling.clear()
+    reset_launch_counts()
+    with profiling.tracing():
+        out = plan(raw, slice_run["ts2"])
+    recs = profiling.records()
+    profiling.clear()
+    assert ua.KERNEL_NAME not in launch_counts
+    assert [r.name for r in recs].count("fused.apply") == 1
+    assert all(ua.APPLY_COUNTER not in r.counts for r in recs)
+    a, b = out["fused_10m"].numpy(), slice_run["tout"]["fused_10m"].numpy()
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    np.testing.assert_array_equal(np.nan_to_num(a), np.nan_to_num(b))
+
+
+def _kernel_arithmetic(x, valid, spec_r, spec_c, coeffs):
+    """``csrc/upsample_apply.cu``'s arithmetic in NumPy float32 from the
+    wrapper's axis tables: row lerp of the valid-masked source and its
+    mass, column lerp, renormalise, mask, Horner, clamp."""
+    from hyperres_torch.kernels.upsample_apply import _axis
+
+    hs, ws = valid.shape
+    fr, r0r, w0r, w1r, rlo, rhi = _axis(spec_r)
+    fc, r0c, w0c, w1c, clo, chi = _axis(spec_c)
+    r, c = np.arange(spec_r[4]), np.arange(spec_c[4])
+    a = np.array(r0r[:])[r % fr] + r // fr
+    j = np.array(r0c[:])[c % fc] + c // fc
+    f32 = np.float32
+    src = np.concatenate([np.where(valid[..., None], x, f32(0)),
+                          valid[..., None].astype(f32)], -1)
+
+    def tap(ri, ci):
+        ok = ((ri[:, None] >= 0) & (ri[:, None] < hs)
+              & (ci[None] >= 0) & (ci[None] < ws))
+        v = src[np.clip(ri, 0, hs - 1)[:, None], np.clip(ci, 0, ws - 1)[None]]
+        return np.where(ok[..., None], v, f32(0))
+
+    rw0 = np.array(w0r[:], f32)[r % fr][:, None, None]
+    rw1 = np.array(w1r[:], f32)[r % fr][:, None, None]
+    cw0 = np.array(w0c[:], f32)[c % fc][None, :, None]
+    cw1 = np.array(w1c[:], f32)[c % fc][None, :, None]
+    s = ((tap(a, j) * rw0 + tap(a + 1, j) * rw1) * cw0
+         + (tap(a, j + 1) * rw0 + tap(a + 1, j + 1) * rw1) * cw1)
+    num, den = s[..., :3], s[..., 3]
+    keep = (((r >= rlo) & (r < rhi))[:, None] & ((c >= clo) & (c < chi))
+            & (np.abs(den) > f32(1e-6)))
+    with np.errstate(all="ignore"):
+        v = num / den[..., None]
+        ok = keep & np.isfinite(v).all(-1)
+        y = np.broadcast_to(f32(0) + coeffs[:, 0], v.shape)
+        for i in range(1, coeffs.shape[1]):
+            y = y * v + coeffs[:, i]
+        y = np.where(np.isnan(y), y, np.clip(y, f32(0), f32(1)))
+    return np.where(ok[..., None], y, f32(np.nan)).astype(f32)
+
+
+@pytest.mark.parametrize("method", ["ot_poly", "linear"])
+def test_upsample_apply_arithmetic_equals_eager_chain(method, rng):
+    """The kernel's arithmetic, emulated in NumPy float32 from the
+    wrapper's axis tables (``w0 = f32(1 - t)``), equals the plan's eager
+    chain (``separable_resample_fast``, ``_map_10m``, ``apply_params``)
+    bit for bit, NaN in the same places: a swath edge of invalid 60 m
+    pixels, NaN / +-inf at valid ones, cin ranges that cut rows and
+    columns, both ends of the clamp."""
+    from hyperres_torch.kernels.warp import separable_resample_fast
+
+    up = _up_fast_cut()
+    x = rng.uniform(-0.05, 1.05, (37, 45, 3)).astype(np.float32)
+    rr, cc = np.mgrid[:37, :45]
+    valid = (cc > 4 + 0.4 * rr) & (rng.random((37, 45)) > 0.05)
+    x[~valid] = np.nan
+    vi = rng.choice(np.flatnonzero(valid), 9, replace=False)
+    x.reshape(-1, 3)[vi, vi % 3] = [np.nan, np.inf, -np.inf] * 3
+    if method == "ot_poly":
+        params = rng.normal(0.0, 0.6, (3, 5)).astype(np.float32)
+        params[:, -2] += 1.0
+    else:
+        params = np.array([[1.3, -0.1], [0.8, 0.05], [1.05, 0.2]],
+                          np.float32)
+    got = _kernel_arithmetic(x, valid, *up, params)
+    sim10 = separable_resample_fast(T(x), *up, fill=np.nan,
+                                    valid_mask=T(valid))
+    want = tfused._map_10m(sim10, lambda v, m: tfused.apply_params(
+        method, T(params), v)).numpy()
+    assert got.shape == want.shape == (240, 300, 3)
+    nan = np.isnan(want)
+    assert 0.2 < nan.all(-1).mean() < 0.9
+    assert (want == 0).any() and (want == 1).any()
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got.view(np.int32)[~nan],
+                                  want.view(np.int32)[~nan])
