@@ -3,8 +3,10 @@
 These functions are plain NumPy, but in ``hyperres`` they live in
 modules that import JAX at module level, so they cannot be imported on
 a machine without JAX. The copies below are verbatim (bar ``xp``
-defaults); ``tests/test_torch_host.py`` holds each one
-``array_equal`` to its original. Each names its source line.
+defaults, and ``separable_taps``: the bilinear / cubic taps of
+``separable_weight_matrix`` split out, so that a device can place
+them); ``tests/test_torch_host.py`` holds each one ``array_equal`` to
+its original. Each names its source line.
 """
 
 from __future__ import annotations
@@ -163,6 +165,21 @@ def separable_weight_matrix(idx_1d: np.ndarray, src_size: int,
             ok = (j >= 0) & (j < src_size) & centre_in & (w > 0)
             W[rows_d[ok], j[ok]] = w[ok].astype(np.float32)
         return W
+    rows, cols, vals = separable_taps(idx, src_size, method)
+    W[rows, cols] = vals
+    return W
+
+
+def separable_taps(idx_1d: np.ndarray, src_size: int,
+                   method: str = "bilinear"
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The nonzero entries of :func:`separable_weight_matrix` for
+    ``"bilinear"`` / ``"cubic"``: destination rows, source columns and
+    float32 weights (two or four taps per destination, tap by tap), no
+    two at one place."""
+    idx = np.asarray(idx_1d, dtype=np.float64)
+    i0 = np.floor(idx).astype(np.int64)
+    t = idx - i0
     if method == "bilinear":
         taps = [(0, 1.0 - t), (1, t)]
     elif method == "cubic":
@@ -171,13 +188,16 @@ def separable_weight_matrix(idx_1d: np.ndarray, src_size: int,
                 (2, k(2.0 - t))]
     else:
         raise ValueError(f"Unknown method {method!r}")
-    rows_d = np.arange(dst)
+    rows_d = np.arange(idx.shape[0])
     centre_in = (idx >= -0.5) & (idx <= src_size - 0.5)
+    rows, cols, vals = [], [], []
     for off, w in taps:
         cols_s = i0 + off
         ok = (cols_s >= 0) & (cols_s < src_size) & centre_in
-        W[rows_d[ok], cols_s[ok]] = w[ok].astype(np.float32)
-    return W
+        rows.append(rows_d[ok])
+        cols.append(cols_s[ok])
+        vals.append(w[ok].astype(np.float32))
+    return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
 
 
 # -- hyperres/kernels/warp.py:364 --------------------------------------------

@@ -43,7 +43,8 @@ from .banded import (
 from .glt import glt_take
 from .host import (
     cubic_kernel_weight, integer_factor, scanline_cstar,
-    separable_index_axes, separable_weight_matrix, source_index_field,
+    separable_index_axes, separable_taps, separable_weight_matrix,
+    source_index_field,
 )
 
 
@@ -503,6 +504,19 @@ def _on(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _interp_matrix(idx_1d: np.ndarray, src_size: int, method: str,
+                   device: torch.device) -> torch.Tensor:
+    """``separable_weight_matrix(idx_1d, src_size, method)`` for
+    ``"bilinear"`` / ``"cubic"`` as a tensor on ``device``: its taps
+    (``separable_taps``, on the host) scattered into the dense (Dst, Src)
+    matrix there, so the dense host array and its upload are not made."""
+    rows, cols, vals = separable_taps(idx_1d, src_size, method)
+    W = torch.zeros((len(idx_1d), src_size), dtype=torch.float32,
+                    device=device)
+    W[_on(rows, device), _on(cols, device)] = _on(vals, device)
+    return W
+
+
 def resample_tensor_to_grid(arr: torch.Tensor, src_grid: Grid,
                             dst_grid: Grid, *, method: str = "bilinear",
                             nodata: Optional[float] = None,
@@ -544,10 +558,8 @@ def resample_tensor_to_grid(arr: torch.Tensor, src_grid: Grid,
     sep = separable_index_axes(src_grid, dst_grid)
     if sep is not None and method_eff in ("bilinear", "cubic"):
         # same-CRS transfers as two dense products, in exact f32
-        Wr = _on(separable_weight_matrix(sep[0], src_grid.height,
-                                         method_eff), dev)
-        Wc = _on(separable_weight_matrix(sep[1], src_grid.width,
-                                         method_eff), dev)
+        Wr = _interp_matrix(sep[0], src_grid.height, method_eff, dev)
+        Wc = _interp_matrix(sep[1], src_grid.width, method_eff, dev)
         return separable_resample_matmul(arr, Wr, Wc, nodata=nodata,
                                          fill=fill)
     if sep is not None:
@@ -603,16 +615,22 @@ def resample_to_grid(data: np.ndarray, src_grid: Grid, dst_grid: Grid, *,
     and the destination has at least 256 x 256 pixels; everything else
     the gather kernels (``kernel="gather"`` keeps them), in chunks of
     ``band_chunk`` bands if given. ``device``: default the current CUDA
-    device."""
-    dev = resolve_device(device)
-    arr = torch.from_numpy(np.asarray(data, dtype=np.float32)).to(dev)
+    device. A tensor ``data`` is resampled on ``device`` (default its
+    own) and returned as a float32 tensor there."""
+    if isinstance(data, torch.Tensor):
+        dev = data.device if device is None else resolve_device(device)
+        arr = data.to(dev, torch.float32)
+    else:
+        dev = resolve_device(device)
+        arr = torch.from_numpy(np.asarray(data, dtype=np.float32)).to(dev)
     squeeze = arr.dim() == 2
     if squeeze:
         arr = arr[..., None]
     out = resample_tensor_to_grid(arr, src_grid, dst_grid, method=method,
                                   nodata=nodata, fill=fill,
-                                  band_chunk=band_chunk,
-                                  kernel=kernel).cpu().numpy()
+                                  band_chunk=band_chunk, kernel=kernel)
+    if not isinstance(data, torch.Tensor):
+        out = out.cpu().numpy()
     return out[..., 0] if squeeze else out
 
 

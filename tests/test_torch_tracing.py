@@ -1,9 +1,11 @@
 """The port's spans and counters (``hyperres_torch.utils.profiling``):
 off, a span makes no torch call and leaves no record; on (a
 ``torch.profiler`` recording, or ``tracing()``), one call of the fused
-granule plan and of the SR model leaves one span per stage, with the
-parents and the one trace id of the call, and the Sinkhorn sweep
-counter ``ot.sweeps`` equals the sweeps run."""
+granule plan, of the SR model and of the resident coregistration core
+leaves one span per stage, with the parents and the one trace id of the
+call; the Sinkhorn sweep counter ``ot.sweeps`` equals the sweeps run,
+and the coregistration's ``coreg.windows`` and ``coreg.tiepoints`` the
+windows matched and the tie points used."""
 
 import contextlib
 import json
@@ -271,3 +273,91 @@ def test_profile_trace_clears_and_exports_the_spans(tmp_path, plan, scene):
     names = {e.get("name") for e in events
              if e.get("cat") == "user_annotation"}
     assert {"fused", *STAGES} <= names
+
+
+# -------------------------------------------------------- coregistration ---
+
+COREG_STAGES = ("coreg.resample", "coreg.match", "coreg.filter",
+                "coreg.deshift")
+
+
+@pytest.fixture(scope="module")
+def coreg_data():
+    """The coregistration cell's world over a 100 x 110 raw swath: the
+    EMIT band and one displaced 4-band u16 S2 stack (733 x 757 px)."""
+    from benchmark.harness.coreg_scene import coreg_scene
+    from benchmark.systems.coreg_local import _grid
+    from hyperres_torch.core.config import CoregConfig
+    from hyperres_torch.coreg.granule import s2_bandmap_from_descriptions
+
+    sc = coreg_scene([100, 110], 1, 2**33 + 3, torch.device("cpu"), bands=4)
+    return {"emit": sc["emit"], "stack": sc["stacks"][0],
+            "grids": (_grid(sc["utm60"]), _grid(sc["s2_grid"])),
+            "bandmap": s2_bandmap_from_descriptions(sc["descriptions"]),
+            "config": CoregConfig(window_size=(128, 128), grid_res=150.0,
+                                  min_reliability=25.0)}
+
+
+def run_coreg(d):
+    from hyperres_torch.coreg.granule import coregister_stack
+
+    out = coregister_stack({"B08": d["emit"]}, d["grids"][0], d["stack"],
+                           d["grids"][1], d["config"],
+                           s2_bandmap=d["bandmap"], nodata_emit=-9999.0,
+                           nodata_s2=65535.0, device="cpu")
+    assert out["final"]["success"]
+    return out
+
+
+@pytest.mark.parametrize("mode", ["profiler", "tracing"])
+def test_coreg_spans_nest_under_one_root(mode, coreg_data):
+    """One call: the root ``coreg`` and its four stages, in order, under
+    one trace id; the stages and the root's self time add up to the
+    root; the counters equal the result's windows matched and tie points
+    used."""
+    from benchmark.harness import program_spans
+
+    with spans_on(mode) as prof:
+        out = run_coreg(coreg_data)
+    call = profiling.records()
+    recs = by_name(call)
+    assert set(recs) == {"coreg", *COREG_STAGES}
+    root = recs["coreg"]
+    assert root.parent_id is None and root.trace_id == root.span_id
+    for name in COREG_STAGES:
+        r = recs[name]
+        assert r.parent_id == root.span_id and r.trace_id == root.span_id
+        assert root.start_s <= r.start_s <= r.end_s <= root.end_s
+    starts = [recs[n].start_s for n in COREG_STAGES]
+    assert starts == sorted(starts)
+    stages = sum(program_spans.stage_ms(call, n) for n in COREG_STAGES)
+    own = program_spans.self_ms(call)
+    assert 0.0 <= own < root.ms
+    assert stages + own == pytest.approx(root.ms)
+    info = out["result"].info
+    assert recs["coreg.match"].counts == {"coreg.windows": info["n_matched"]}
+    assert recs["coreg.filter"].counts == {
+        "coreg.tiepoints": info["n_used"]}
+    assert all(not recs[n].counts for n in ("coreg", "coreg.resample",
+                                             "coreg.deshift"))
+    if prof is not None:
+        assert {"coreg", *COREG_STAGES} <= {e.name for e in prof.events()}
+
+
+def test_coreg_calls_are_separate_traces(coreg_data):
+    with profiling.tracing():
+        run_coreg(coreg_data)
+        run_coreg(coreg_data)
+    roots = [r for r in profiling.records() if r.parent_id is None]
+    assert [r.name for r in roots] == ["coreg", "coreg"]
+    assert roots[0].trace_id != roots[1].trace_id
+
+
+def test_coreg_off_records_nothing(monkeypatch, coreg_data):
+    def refuse(*a, **k):
+        raise AssertionError("record_function opened with spans off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    run_coreg(coreg_data)
+    assert profiling.records() == []
