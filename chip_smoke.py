@@ -9,10 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 
 1. Device: needs ``torch.cuda.is_available()``; prints the
    ``nvidia-smi --query-gpu=name,power.limit`` line.
-2. Build: compiles the six kernels (``csrc/scanline_warp.cu``,
+2. Build: compiles the seven kernels (``csrc/scanline_warp.cu``,
    ``csrc/sr_predict.cu``, ``csrc/sinkhorn_duals.cu``,
    ``csrc/quantize_u16.cu``, ``csrc/srf_synthesize.cu``,
-   ``csrc/upsample_apply.cu``) with nvcc for
+   ``csrc/upsample_apply.cu``, ``csrc/deshift_warp.cu``) with nvcc for
    sm_90a, one nvcc each, all started together, and prints the build
    times and ptxas reports.
 2a. The ingest's two hazards: PREFETCH_CHUNKS seeded slabs go through
@@ -193,8 +193,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and the manifest, the SR fit's ``r2_mean`` > PAIRS_R2_MIN,
    ``emit_sr_10m.tif`` decodes with one band per SR band on the fused
    product's grid, ``report.md`` has every section, each scanline pass
-   launched at least ORTHO_CHUNKS times, quantize at least once and the
-   SR kernel exactly once.
+   launched at least ORTHO_CHUNKS times, quantize at least once, and the
+   SR kernel and the deshift kernel exactly once.
+13a. The coregistration's deshift kernel (``csrc/deshift_warp.cu``) at
+   the coregistration cell's shapes (its launches: phase 13's run's): a
+   seeded (10, 9140, 9309) u16 stack whose first 5 % of pixels are
+   nodata (65535), deshifted cubically by DESHIFT_AFFINE (a translation of 5.3 / -3.8 px and a centred linear
+   term of up to 1.5 px across the footprint); its u16 product must equal
+   the eager chain's (``coreg.local.deshift_hwb`` and the cast) bit for
+   bit; the kernel timed against its byte bound and that chain.
 14. Multi-device (``hyperres_torch.parallel``) on meshes of logical
    shards on the card, each op timed (host clock around a synchronise,
    peak memory) beside its single-device counterpart on the same inputs:
@@ -417,6 +424,15 @@ REFL_HI_EFF = 6.5535        # export_reflectance_u16's hi for (0, 1) -> 0..10000
 QUANT_NAME = "quantize_u16"
 QUANT_SOURCE = "hyperres_torch/csrc/quantize_u16.cu"
 APPLY_SOURCE = "hyperres_torch/csrc/upsample_apply.cu"
+DESHIFT_SOURCE = "hyperres_torch/csrc/deshift_warp.cu"
+#: no TPU kernel: the reference's deshift calls its plain warp
+DESHIFT_REPLACES = ("none (hyperres/coreg/local.py:356, the plain "
+                    "warp_interpolate, left to XLA)")
+#: the coregistration cell's stack and a shift model of its kind (px):
+#: dy = 5.3 + 1.5 (r / H - 1/2) - 0.7 (c / W - 1/2), dx likewise
+DESHIFT_STACK = (10, 9140, 9309)
+DESHIFT_AFFINE = ((1.5 / 9140, -0.7 / 9309, 5.3 - 0.75 + 0.35),
+                  (0.4 / 9140, 0.9 / 9309, -3.8 - 0.2 - 0.45))
 #: no TPU kernel: the reference leaves phase 4 to XLA's fusion
 APPLY_REPLACES = ("none (hyperres/fusion/fused.py:233-275, phase 4, "
                   "left to XLA's fusion)")
@@ -1667,10 +1683,10 @@ def shifted_s2_stack(dev, cube, utm_grid, wavelengths, good, s2_tif,
     return Path(out_tif)
 
 
-def pairs_phase(dev, scene, s2_tif, out_dir, card_line: str) -> None:
+def pairs_phase(dev, scene, s2_tif, out_dir, card_line: str) -> dict:
     """Phase 13 (see the module docstring): ``run_pair_pipeline`` on
     phase 9's granule and the shifted S2 stack, coregistration and the SR
-    product on, on the default device."""
+    product on, on the default device. Returns the run's launch counts."""
     import torch
     from hyperres_torch.core.config import (
         CoregConfig, OrthoConfig, PolyFusionConfig, RidgeSRConfig,
@@ -1680,6 +1696,8 @@ def pairs_phase(dev, scene, s2_tif, out_dir, card_line: str) -> None:
     from hyperres_torch.device import launch_counts, reset_launch_counts
     from hyperres_torch.io.tiff import TiffReader
     from hyperres_torch.kernels.banded import KERNEL_NAMES
+    from hyperres_torch.kernels.deshift_warp import \
+        KERNEL_NAME as DESHIFT_NAME
     from hyperres_torch.kernels.sr_predict import KERNEL_NAME as SR_NAME
     from hyperres_torch.pipeline import run_pair_pipeline
 
@@ -1757,6 +1775,10 @@ def pairs_phase(dev, scene, s2_tif, out_dir, card_line: str) -> None:
     if counts.get(SR_NAME, 0) != 1:
         fail(f"run_pair_pipeline: {SR_NAME} launched "
              f"{counts.get(SR_NAME, 0)} times, expected 1")
+    if counts.get(DESHIFT_NAME, 0) != 1:
+        fail(f"run_pair_pipeline: {DESHIFT_NAME} launched "
+             f"{counts.get(DESHIFT_NAME, 0)} times, expected 1")
+    return counts
 
 
 def timed(dev, fn, warm: bool = True):
@@ -2758,6 +2780,58 @@ def apply_phase(plan, utm_cube, s2, coeffs, counts) -> dict:
             "library_ms": None, **work}
 
 
+def deshift_phase(dev, counts) -> dict:
+    """Phase 13a: the deshift kernel at the coregistration cell's shapes
+    against the eager chain it replaces, bit for bit, and timed; its
+    launches those of phase 13's main-path run (``counts``). Returns its
+    entry of the kernels line."""
+    import torch
+    from hyperres_torch.coreg import local as tlocal
+    from hyperres_torch.kernels.deshift_warp import KERNEL_NAME, deshift_warp
+
+    b, h, w = DESHIFT_STACK
+    gen = torch.Generator(device=dev).manual_seed(20)
+    stack = torch.randint(0, 20000, DESHIFT_STACK, generator=gen,
+                          device=dev, dtype=torch.int32).to(torch.uint16)
+    stack.view(b, -1)[:, :h * w // 20] = 65535
+    res = tlocal.CoregResult(True, None, affine=np.array(DESHIFT_AFFINE))
+
+    def kernel():
+        return deshift_warp(stack, res.affine, torch.uint16, nodata=65535.0)
+
+    def eager():
+        return tlocal._cast_product(
+            tlocal.deshift_hwb(stack, res, nodata=65535.0), torch.uint16,
+            65535.0)
+
+    got, want = kernel(), eager()
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    err, n = int(diff.max()), int((diff > 0).sum())
+    log(f"check {KERNEL_NAME} at {DESHIFT_STACK} u16, cubic: codes off the "
+        f"eager chain's {n} (largest {err}), nodata share "
+        f"{float((got == 65535).float().mean()):.4f}")
+    if n:
+        fail(f"{KERNEL_NAME} differs from the eager chain it replaces at "
+             f"{n} codes")
+    del diff
+    del got, want
+    torch.cuda.empty_cache()
+    ms = cuda_ms(kernel, 10)
+    plain_ms = cuda_ms(eager, 1)
+    # the stack read once and the product written once, u16; a multiply
+    # and two adds a tap
+    n = float(b * h * w)
+    work = bound(4.0 * n, 48.0 * n)
+    log(f"{KERNEL_NAME}: kernel {ms:.3f} ms, eager chain {plain_ms:.3f} ms, "
+        f"bound {work['bound_ms']:.3f} ms ({work['bound_by']}), "
+        f"{work['bound_ms'] / ms:.1%} of it", keep=True)
+    del stack
+    torch.cuda.empty_cache()
+    return {"name": KERNEL_NAME, "route": "cuda", "source": DESHIFT_SOURCE,
+            "replaces": DESHIFT_REPLACES, "launches": counts[KERNEL_NAME],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **work}
+
+
 def quantize_phase(cube, launches: int) -> dict:
     """Phase 10: the quantize kernel against its plain version on the
     ortho phase's UTM cube in three forms; timed in the reflectance form.
@@ -3214,7 +3288,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load_libraries(["scanline_warp", "sr_predict", "sinkhorn_duals",
                            "quantize_u16", "srf_synthesize",
-                           "upsample_apply"])
+                           "upsample_apply", "deshift_warp"])
     log(f"build: all kernels in {time.perf_counter() - t0:.3f} s")
     for name, info in _build.build_info.items():
         log(f"build: {name}: nvcc {info['seconds']:.3f} s")
@@ -3369,7 +3443,6 @@ def main() -> None:
     del utm_cube, target, scene
     torch.cuda.empty_cache()
     clock.mark("fuse_pair")
-
     kernels.extend(sr_phases(dev))
     torch.cuda.empty_cache()
     clock.mark("SR")
@@ -3396,10 +3469,15 @@ def main() -> None:
         clock.mark("verify_granule")
         shutil.rmtree(Path(d) / "verify")
         # -- 13. run_pair_pipeline on that granule ---------------------------
-        pairs_phase(dev, scene, s2_shifted, Path(d) / "pairs", card_line)
+        counts = pairs_phase(dev, scene, s2_shifted, Path(d) / "pairs",
+                             card_line)
         clock.mark("run_pair_pipeline")
         shutil.rmtree(Path(d) / "pairs")
         torch.cuda.empty_cache()
+        # -- 13a. the coregistration's deshift kernel ------------------------
+        kernels.append(deshift_phase(dev, counts))
+        torch.cuda.empty_cache()
+        clock.mark("deshift")
         # -- 14. the sharded ops on meshes of logical shards ----------------
         parallel_phase(dev, scene, utm_grid, s2_band, card_line)
         del s2_band

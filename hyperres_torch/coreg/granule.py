@@ -15,7 +15,8 @@ input's dtype. :func:`coregister_s2_to_emit` reads the GeoTIFFs, calls
 it, and writes its product. Spans (``utils/profiling.py``): the root
 ``coreg`` over the core's call, and the stages ``coreg.resample``,
 ``coreg.match``, ``coreg.filter`` and ``coreg.deshift`` (field, warp and
-the cast to the input's dtype).
+the cast to the input's dtype: one kernel on the card, counted as
+``deshift.kernel``).
 
 One deliberate departure: the reference records *any* exception of an
 attempt and goes on to the next band (``granule.py:149-152``). Here an
@@ -40,7 +41,7 @@ from ..io.granule import EmitGranule
 from ..io.tiff import TiffReader, write_geotiff
 from ..kernels.warp import resample_to_grid
 from ..utils.profiling import span
-from .local import _as_tensor, _device_of, coregister_local, deshift_hwb
+from .local import _as_tensor, _device_of, coregister_local, deshift_product
 
 
 #: what an attempt records and goes on from: errors of the data, not of
@@ -64,19 +65,6 @@ def s2_bandmap_from_descriptions(descriptions) -> Dict[str, int]:
 def closest_band_1based(wavelengths_nm: np.ndarray, target_nm: float) -> int:
     return int(np.argmin(np.abs(
         np.asarray(wavelengths_nm, float) - float(target_nm)))) + 1
-
-
-def _product(out_hwb: torch.Tensor, dtype: torch.dtype,
-             nodata: Optional[float]) -> torch.Tensor:
-    """The deshifted (H, W, B) float32 stack as (B, H, W) in the input's
-    kind: float32 for a float stack; else u16, as the reference writes
-    it: NaN to ``nodata`` (0 without one), clipped to [0, 65535], then
-    truncated."""
-    if dtype.is_floating_point:
-        return out_hwb.permute(2, 0, 1).contiguous()
-    q = out_hwb.nan_to_num_(nan=nodata if nodata is not None else 0.0)
-    q = q.clamp_(0, 65535).to(torch.int32).to(torch.uint16)
-    return q.permute(2, 0, 1).contiguous()
 
 
 def coregister_stack(
@@ -151,12 +139,12 @@ def coregister_stack(
                     continue
 
                 with span("coreg.deshift", dev):
-                    shifted = _product(
-                        deshift_hwb(stack, res, nodata=nodata_s2,
-                                    method=cfg.resamp_deshift,
-                                    local_residuals=cfg.local_residuals,
-                                    residual_mode=cfg.residual_mode),
-                        stack.dtype, nodata_s2)
+                    shifted = deshift_product(
+                        stack, res, torch.float32
+                        if stack.dtype.is_floating_point else torch.uint16,
+                        nodata=nodata_s2, method=cfg.resamp_deshift,
+                        local_residuals=cfg.local_residuals,
+                        residual_mode=cfg.residual_mode)
                 if on_product is not None:
                     on_product(shifted)
 

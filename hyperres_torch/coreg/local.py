@@ -1,7 +1,8 @@
 # Port-owned copy of hyperres/coreg/local.py: the host parts verbatim
-# (TiePoint, CoregResult, ransac_affine_filter :51 with its seeded
-# generator, _tie_point_grid :88, tps_fit_residuals :226, tps_evaluate
-# :251, shift_field :268 (its NumPy form), coregister_local's filters);
+# (TiePoint, CoregResult, _tie_point_grid :88, tps_fit_residuals :226,
+# tps_evaluate :251, shift_field :268 (its NumPy form), coregister_local's
+# filters) but ransac_affine_filter :51, whose loop runs as one stacked
+# solve over the same seeded picks;
 # the window cut, the phase correlation, the shift field and the deshift
 # warp run on the device.
 """Local coregistration: tie-point grid phase correlation + deshift.
@@ -30,21 +31,28 @@ own device, else the current CUDA device; ``"cpu"`` for the CPU):
   back (dy, dx, reliability) and the kept-window mask. The filters
   (reliability, max shift, MAD, the seeded RANSAC) and the affine least
   squares stay on the host, in float64, as in the reference.
-- ``deshift`` evaluates the shift field on the device (``shift_field``
-  with a ``device``: the affine in float64 as NumPy promotes it, the
-  IDW / TPS residuals in the NumPy form's precision) and warps the stack
-  there with :func:`~hyperres_torch.kernels.warp.warp_interpolate_chunked`;
-  the stack never leaves the device, and a tensor input gets a tensor
-  back.
+- ``deshift`` (:func:`deshift_product`) runs on the device. On the
+  card, a uint16 or float32 stack deshifted cubically or bilinearly takes
+  one kernel (``kernels/deshift_warp.py``) from the stack to the
+  product; everything else takes the eager chain (:func:`deshift_hwb`):
+  the shift field (``shift_field`` with a ``device``: the affine in
+  float64 as NumPy promotes it, the IDW / TPS residuals in the NumPy
+  form's precision) and
+  :func:`~hyperres_torch.kernels.warp.warp_interpolate_chunked`. The two
+  give the same product, bit for bit; the stack never leaves the
+  device, and a tensor input gets a tensor back.
 
 Spans (``utils/profiling.py``): ``coreg.match`` (the cut, the fill, the
 transforms, the peak and the read; counter ``coreg.windows``, the
 windows matched) and ``coreg.filter`` (the host filters and the affine
-fit; counter ``coreg.tiepoints``, the points used).
+fit; counter ``coreg.tiepoints``, the points used); ``deshift_product``
+counts ``deshift.kernel`` once a launch of the kernel in the open span.
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -53,6 +61,8 @@ import torch
 
 from ..core.config import CoregConfig
 from ..device import resolve_device
+from ..kernels.deshift_warp import (DESHIFT_COUNTER, deshift_warp,
+                                   takes_kernel)
 from ..kernels.phasecorr import phase_correlate_batch
 from ..kernels.warp import warp_interpolate_chunked
 from ..utils.profiling import count, span
@@ -83,6 +93,31 @@ class CoregResult:
     info: Dict = field(default_factory=dict)
 
 
+@functools.lru_cache(maxsize=16)
+def _ransac_picks(n: int, n_iter: int, seed: int) -> np.ndarray:
+    """The (n_iter, 3) index triples that ``n_iter`` successive
+    ``choice(n, 3, replace=False)`` draws of ``default_rng(seed)`` give:
+    the reference's picks, which depend on ``n`` alone, so drawn once
+    (read-only)."""
+    rng = np.random.default_rng(seed)
+    picks = np.stack([rng.choice(n, size=3, replace=False)
+                      for _ in range(n_iter)])
+    picks.setflags(write=False)
+    return picks
+
+
+def _lstsq_stack(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``np.linalg.lstsq(a[i], b[i], rcond=None)[0]`` for a stack of
+    float64 systems (S, m, n), (S, m, k) at once: the minimum-norm
+    solution through the SVD, singular values at or below
+    eps * max(m, n) * s_max taken as zero (LAPACK gelsd's rule)."""
+    u, s, vt = np.linalg.svd(a, full_matrices=False)
+    keep = s > np.finfo(np.float64).eps * max(a.shape[1:]) * s[:, :1]
+    s_inv = np.where(keep, 1.0 / np.where(keep, s, 1.0), 0.0)
+    return np.swapaxes(vt, 1, 2) @ (s_inv[:, :, None]
+                                    * (np.swapaxes(u, 1, 2) @ b))
+
+
 def ransac_affine_filter(tps: List[TiePoint], thresh_px: float = 3.0,
                          n_iter: int = 200, seed: int = 0) -> None:
     """AROSICS tie-point filter level 3: RANSAC consensus on the affine
@@ -91,25 +126,22 @@ def ransac_affine_filter(tps: List[TiePoint], thresh_px: float = 3.0,
     RANSAC over the shift field). Marks non-consensus points
     ``used=False`` with reason "ransac". Deterministic (seeded).
     Engages only with enough points for a meaningful consensus (>= 8);
-    with fewer, the MAD stage is the better-conditioned filter."""
+    with fewer, the MAD stage is the better-conditioned filter.
+
+    The reference's loop at once: its seeded triples
+    (:func:`_ransac_picks`), every triple's least squares in one stacked
+    SVD (:func:`_lstsq_stack`), every model scored in one product, and
+    the first model with the most inliers kept, as the loop keeps it."""
     used = [t for t in tps if t.used]
     if len(used) < 8:
         return
-    G = np.stack([[t.row, t.col, 1.0] for t in used])
-    D = np.stack([[t.dy, t.dx] for t in used])
-    rng = np.random.default_rng(seed)
-    best_inliers: Optional[np.ndarray] = None
-    for _ in range(n_iter):
-        pick = rng.choice(len(used), size=3, replace=False)
-        try:
-            A, *_ = np.linalg.lstsq(G[pick], D[pick], rcond=None)
-        except np.linalg.LinAlgError:
-            continue
-        resid = np.linalg.norm(G @ A - D, axis=1)
-        inliers = resid < thresh_px
-        if best_inliers is None or inliers.sum() > best_inliers.sum():
-            best_inliers = inliers
-    if best_inliers is None or best_inliers.sum() < 3:
+    G = np.array([[t.row, t.col, 1.0] for t in used])
+    D = np.array([[t.dy, t.dx] for t in used])
+    picks = _ransac_picks(len(used), n_iter, seed)
+    A = _lstsq_stack(G[picks], D[picks])
+    inliers = np.linalg.norm(G @ A - D, axis=2) < thresh_px
+    best_inliers = inliers[np.argmax(inliers.sum(axis=1))]
+    if best_inliers.sum() < 3:
         return
     # refit on the consensus set and re-score all points against it
     A, *_ = np.linalg.lstsq(G[best_inliers], D[best_inliers], rcond=None)
@@ -259,13 +291,14 @@ def _filter_and_fit(cfg: CoregConfig, pts, keep, dy, dx, rel,
         used = [t for t in tps if t.used]
         if len(used) >= 4:
             for comp in ("dy", "dx"):
-                vals = np.array([getattr(t, comp) for t in tps if t.used])
+                live = [t for t in tps if t.used]
+                vals = np.array([getattr(t, comp) for t in live])
                 med = np.median(vals)
                 mad = np.median(np.abs(vals - med)) + 1e-9
-                for t in tps:
-                    if t.used and abs(getattr(t, comp) - med) > 4.0 * 1.4826 * mad:
-                        t.used = False
-                        t.reject_reason = "mad_outlier"
+                out = np.abs(vals - med) > 4.0 * 1.4826 * mad
+                for t in itertools.compress(live, out):
+                    t.used = False
+                    t.reject_reason = "mad_outlier"
 
     # filter level 3 (continued): RANSAC consensus on the affine shift
     # model — the AROSICS level-3 mechanism; the MAD stage above covers
@@ -281,8 +314,8 @@ def _filter_and_fit(cfg: CoregConfig, pts, keep, dy, dx, rel,
 
     # affine shift model [dy, dx](r, c) = A @ [r, c, 1]
     if len(used) >= 3:
-        G = np.stack([[t.row, t.col, 1.0] for t in used])
-        D = np.stack([[t.dy, t.dx] for t in used])
+        G = np.array([[t.row, t.col, 1.0] for t in used])
+        D = np.array([[t.dy, t.dx] for t in used])
         A, *_ = np.linalg.lstsq(G, D, rcond=None)
         affine = A.T  # (2, 3)
     else:
@@ -504,6 +537,45 @@ def deshift_hwb(stack: torch.Tensor, result: CoregResult,
         fill=float(np.float32(nodata)) if nodata is not None else np.nan)
 
 
+def _cast_product(out_hwb: torch.Tensor, out_dtype: torch.dtype,
+                  nodata: Optional[float]) -> torch.Tensor:
+    """The eager deshift's (H, W, B) float32 stack as (B, H, W) in
+    ``out_dtype``: float32; or u16, as the reference writes it: NaN to
+    ``nodata`` (0 without one), clipped to [0, 65535], then truncated."""
+    if out_dtype == torch.float32:
+        return out_hwb.permute(2, 0, 1).contiguous()
+    q = out_hwb.nan_to_num_(nan=nodata if nodata is not None else 0.0)
+    q = q.clamp_(0, 65535).to(torch.int32).to(torch.uint16)
+    return q.permute(2, 0, 1).contiguous()
+
+
+def deshift_product(stack: torch.Tensor, result: CoregResult,
+                    out_dtype: torch.dtype, nodata: Optional[float] = None,
+                    method: str = "cubic", local_residuals: bool = False,
+                    residual_mode: str = "idw") -> torch.Tensor:
+    """The deshifted (B, H, W) tensor ``stack`` as (B, H, W) in
+    ``out_dtype`` (float32, or uint16 cast as :func:`_cast_product`
+    casts), on the stack's device. Where
+    :func:`~hyperres_torch.kernels.deshift_warp.takes_kernel` holds, one
+    kernel launch (counted as ``deshift.kernel`` in the open span), with
+    the local residuals' field made by :func:`shift_field`; else
+    :func:`deshift_hwb` and the cast."""
+    if takes_kernel(stack.device, stack.dtype, method):
+        dy = dx = None
+        if local_residuals:
+            dy, dx = shift_field(result, stack.shape[1:],
+                                 local_residuals=True, mode=residual_mode,
+                                 device=stack.device)
+        out = deshift_warp(stack.contiguous(), result.affine, out_dtype,
+                           dy=dy, dx=dx, nodata=nodata, method=method)
+        count(DESHIFT_COUNTER)
+        return out
+    return _cast_product(
+        deshift_hwb(stack, result, nodata=nodata, method=method,
+                    local_residuals=local_residuals,
+                    residual_mode=residual_mode), out_dtype, nodata)
+
+
 def deshift(
     tgt_stack,
     result: CoregResult,
@@ -520,11 +592,12 @@ def deshift(
     ("idw" or "tps"). tgt_stack (B, H, W) -> (B, H, W) float32: a NumPy
     array for an array, a tensor on ``device`` for a tensor.
 
-    The field and the warp run on ``device`` (:func:`deshift_hwb`; the
-    warp's temporaries of a 9600 x 9600 x 10 stack stay under ~30 GB)."""
+    The field and the warp run on ``device`` (:func:`deshift_product`: on
+    the card one kernel; the eager warp's temporaries of a 9600 x 9600 x
+    10 stack stay under ~30 GB)."""
     dev = _device_of(tgt_stack, device)
-    out = deshift_hwb(_as_tensor(tgt_stack, dev), result, nodata=nodata,
-                      method=method, local_residuals=local_residuals,
-                      residual_mode=residual_mode)
-    out = out.permute(2, 0, 1).contiguous()
+    out = deshift_product(_as_tensor(tgt_stack, dev), result, torch.float32,
+                          nodata=nodata, method=method,
+                          local_residuals=local_residuals,
+                          residual_mode=residual_mode)
     return out if isinstance(tgt_stack, torch.Tensor) else out.cpu().numpy()

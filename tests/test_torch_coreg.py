@@ -261,6 +261,47 @@ def test_ransac_affine_filter_bit_equal(rng):
     assert sum(not t.used for t in tps) >= 4
 
 
+@pytest.mark.parametrize("shift", [(4.5, -6.0), (0.4, -0.3)])
+def test_ransac_affine_filter_on_a_grid_equal(rng, shift):
+    """The tie-point grid the match gives (13 x 13 points at 600 px,
+    thresh 3 px): many triples are collinear, so the stacked solve takes
+    rank-deficient systems, and with a sub-threshold shift every model
+    ties. The same points marked as the reference's loop marks them."""
+    pts = []
+    for i, (r, c) in enumerate(tlocal._tie_point_grid(
+            7800, 7800, 600.0, (512, 512), 500)):
+        dy = shift[0] + 2e-4 * r - 1e-4 * c + 0.05 * rng.standard_normal()
+        dx = shift[1] + 1e-4 * c + 0.05 * rng.standard_normal()
+        if i % 17 == 0:
+            dx += 6.0 + 4.0 * abs(rng.standard_normal())
+        pts.append((c, r, dy, dx, 80.0))
+    tps = [tlocal.TiePoint(*p) for p in pts]
+    jps = [jlocal.TiePoint(*p) for p in pts]
+    tlocal.ransac_affine_filter(tps, thresh_px=3.0)
+    jlocal.ransac_affine_filter(jps, thresh_px=3.0)
+    assert [astuple(t) for t in tps] == [astuple(t) for t in jps]
+    assert sum(not t.used for t in tps) >= len(pts) // 17
+
+
+def test_lstsq_stack_matches_lstsq(rng):
+    """``_lstsq_stack`` against ``np.linalg.lstsq`` system by system:
+    full-rank, collinear (rank 2) and repeated (rank 1) triples, and
+    ``_ransac_picks`` the generator's successive draws."""
+    g = np.stack([rng.integers(0, 9000, (60, 3)),
+                  rng.integers(0, 9000, (60, 3)),
+                  np.ones((60, 3))], axis=2).astype(np.float64)
+    g[20:40, :, 0] = 300.0
+    g[40:, :, :2] = g[40:, :1, :2]
+    d = rng.standard_normal((60, 3, 2))
+    want = np.stack([np.linalg.lstsq(a, b, rcond=None)[0]
+                     for a, b in zip(g, d)])
+    np.testing.assert_allclose(tlocal._lstsq_stack(g, d), want,
+                               rtol=1e-9, atol=1e-12)
+    gen = np.random.default_rng(5)
+    draws = [gen.choice(40, size=3, replace=False) for _ in range(30)]
+    np.testing.assert_array_equal(tlocal._ransac_picks(40, 30, 5), draws)
+
+
 def test_tie_point_grid_equal():
     for args in ((600, 640, 150.0, (256, 256), 20),
                  (9600, 9600, 600.0, (512, 512), 500),

@@ -288,3 +288,61 @@ def test_interp_matrix_is_the_host_weight_matrix(method):
         np.testing.assert_array_equal(
             _interp_matrix(idx, 50, method, torch.device("cpu")).numpy(),
             separable_weight_matrix(idx, 50, method))
+
+
+@pytest.mark.parametrize("device,dtype,method,want", [
+    ("cpu", torch.uint16, "cubic", False),
+    ("cpu", torch.float32, "bilinear", False),
+    ("cuda", torch.uint16, "nearest", False),
+    ("cuda", torch.int16, "cubic", False),
+    ("cuda", torch.float64, "cubic", False),
+    ("cuda", torch.uint16, "cubic", True),
+    ("cuda", torch.uint16, "bilinear", True),
+    ("cuda", torch.float32, "cubic", True),
+    ("cuda", torch.float32, "bilinear", True),
+])
+def test_deshift_dispatch_rule(device, dtype, method, want):
+    """The deshift takes the kernel for a CUDA device, a uint16 or
+    float32 stack and cubic or bilinear; the CPU, another dtype and
+    ``nearest`` keep the eager chain (no card needed: the rule reads the
+    device's type)."""
+    from hyperres_torch.kernels.deshift_warp import takes_kernel
+
+    assert takes_kernel(torch.device(device), dtype, method) is want
+
+
+@pytest.mark.parametrize("out_dtype", [torch.uint16, torch.float32])
+@pytest.mark.parametrize("nodata,local", [(float(S2_NODATA), False),
+                                          (None, False),
+                                          (float(S2_NODATA), True)])
+def test_deshift_product_on_the_cpu_is_the_eager_chain(scene, core,
+                                                       out_dtype, nodata,
+                                                       local):
+    """On the CPU ``deshift_product`` launches nothing and gives what the
+    deshift gave before the kernel: the field plus the pixel grid, the
+    stack as (H, W, B) float32, ``warp_interpolate_chunked`` (fill:
+    nodata, else NaN), and for u16 NaN to nodata (0 without), the clamp
+    and the truncation."""
+    from hyperres_torch.device import launch_counts, reset_launch_counts
+    from hyperres_torch.kernels.warp import warp_interpolate_chunked
+
+    stack, res = scene["stack"][:, :300, :280].contiguous(), core["result"]
+    b, h, w = stack.shape
+    rows, cols = tlocal.shift_field(res, (h, w), local_residuals=local,
+                                    device="cpu")
+    rows += torch.arange(h, dtype=torch.float32)[:, None]
+    cols += torch.arange(w, dtype=torch.float32)[None, :]
+    img = stack.permute(1, 2, 0).to(torch.float32).contiguous()
+    want = warp_interpolate_chunked(
+        img, rows, cols, nodata=nodata, method="cubic",
+        fill=float(np.float32(nodata)) if nodata is not None else np.nan)
+    if out_dtype == torch.uint16:
+        want = want.nan_to_num(nan=nodata if nodata is not None else 0.0)
+        want = want.clamp(0, 65535).to(torch.int32).to(torch.uint16)
+    want = want.permute(2, 0, 1).contiguous()
+    reset_launch_counts()
+    got = tlocal.deshift_product(stack, res, out_dtype, nodata=nodata,
+                                 local_residuals=local)
+    assert not launch_counts
+    assert got.dtype == out_dtype and got.shape == (b, h, w)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
