@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Mutation check of ``chip_smoke.py``'s ingest hazard phase (2a) on one
-CUDA GPU.
+"""Mutation check of the ingest hazard check on one CUDA GPU.
 
-Runs ``chip_smoke.prefetch_phase`` on the port as it is, then with each
+Runs ``tests_gpu/test_io.py``'s "hazards" case (``slabs_that_differ``
+with ``PREFETCH["hazards"]``) on the port as it is, then with each
 of ``hyperres_torch.io.pipeline.PrefetchToDevice``'s two guards switched
 off at run time (nothing on disk changes), and prints one RESULT line
 per run:
@@ -26,9 +26,10 @@ from pathlib import Path
 
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+REPO = Path(__file__).resolve().parent.parent
+sys.path[:0] = [str(REPO), str(REPO / "tests_gpu")]
 
-import chip_smoke  # noqa: E402
+import test_io  # noqa: E402
 from hyperres_torch.io import pipeline  # noqa: E402
 
 REPEATS = 3
@@ -36,11 +37,8 @@ REPEATS = 3
 
 def run(label: str, dev) -> None:
     for _ in range(REPEATS):
-        try:
-            chip_smoke.prefetch_phase(dev)
-            verdict = "slabs intact"
-        except SystemExit:
-            verdict = "slabs differ"
+        bad = test_io.slabs_that_differ(dev, *test_io.PREFETCH["hazards"])
+        verdict = f"slabs differ {bad[:8]}" if bad else "slabs intact"
         print(f"RESULT {label}: {verdict}", flush=True)
 
 

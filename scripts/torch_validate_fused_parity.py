@@ -18,8 +18,8 @@ the 2-px eroded interior of that mask. The JAX script states its
 agreement "away from masked borders"; the two passes renormalise the
 valid weight mass per scanline, the tap loop over the 2-D taps, so
 within two pixels of nodata they differ by up to ~0.1 (0.11 at scale
-0.25 on the CPU), as ``chip_smoke.py``'s two-pass check also keeps
-those pixels out. Prints ``PASS`` and exits 0, else exits 1.
+0.25 on the CPU), as ``tests_gpu/fullscale``'s two-pass check also
+keeps those pixels out. Prints ``PASS`` and exits 0, else exits 1.
 """
 
 from __future__ import annotations

@@ -4,9 +4,10 @@ The gate compares the shipped product (two-pass cube, fused engine) with
 the exact one (tap-loop cube, phase-wise engine). The two differ in the
 cube and in the draw of OT samples (the fused engine draws on the device,
 the phase-wise engine with NumPy). For each scene seed this script makes
-the full-width scene of ``chip_smoke.py``'s verify phase (a 1242 x 1280 x
-285 granule and a 9600 px S2 stack), runs both ortho routes, and prints
-the PSNR between ``ot_poly`` products that differ in one thing at a time:
+the full-width scene of ``tests_gpu/fullscale``'s verify check (a 1242 x
+1280 x 285 granule and a 9600 px S2 stack), runs both ortho routes, and
+prints the PSNR between ``ot_poly`` products that differ in one thing at
+a time:
 
 - ``gate``: fused(two-pass cube) vs phases(tap-loop cube), the gate itself;
 - ``cube, fused engine``: fused on the two cubes, the same OT seed;

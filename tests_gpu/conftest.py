@@ -1,13 +1,13 @@
 """The port's card-side tests: each kernel against its plain PyTorch
-version on the card, and the torch demos on the card. They import only
-``torch``, ``numpy`` and ``hyperres_torch`` (the card's machine has no
-JAX), and skip without a card. The chain to the reference stays whole:
-the plain versions are held to the JAX package on the CPU in
-``tests/test_torch_*.py``.
+version, the torch demos, and under ``fullscale/`` every main path at its
+real size. They import only ``torch``, ``numpy`` and ``hyperres_torch``
+(the card's machine has no JAX) and skip without a card; the plain
+versions are held to the JAX package in ``tests/test_torch_*.py``.
 
-    python -m pytest tests_gpu -q
+    python -m pytest tests_gpu -q   # or tests_gpu/fullscale, or --ignore it
 
-(``chip_smoke.py``'s last phase runs it on the card.)
+``python3 chip_smoke.py`` runs this suite, then the kernel table, in one
+process; ``card_inputs.py`` holds the inputs both build once.
 """
 
 import sys

@@ -15,9 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from card_inputs import coreg_scene
 from hyperres_torch.core.config import CoregConfig
-from hyperres_torch.core.crs import CRS
-from hyperres_torch.core.grid import Grid
 from hyperres_torch.coreg import granule as tgranule
 from hyperres_torch.coreg import local as tlocal
 from hyperres_torch.device import launch_counts, reset_launch_counts
@@ -135,44 +134,6 @@ def test_kernel_wrapper_refuses_bad_inputs(cuda_device, rng):
     assert launch_counts == {}
 
 
-def _scene(dev, shift=(2.6, -3.3)):
-    """An EMIT band at 60 m and a 3-band u16 S2 stack at 10 m on the same
-    UTM extent: one world of 2000 plane waves (0.15-2 km), the stack
-    showing it displaced by ``shift`` px (tgt(r, c) = world(r - dy,
-    c - dx)), a nodata stripe over its first 20 rows. Each wave is a
-    product of a row and a column term, so a grid's field is two matrix
-    products."""
-    rng = np.random.default_rng(11)
-    n = 2000
-    k = 2 * np.pi / rng.uniform(150.0, 2000.0, n)
-    th = rng.uniform(0, 2 * np.pi, n)
-    ph = rng.uniform(0, 2 * np.pi, n)
-    ky, kx = k * np.sin(th), k * np.cos(th)
-
-    def world(y, x):
-        """The field at northings-from-top ``y`` (rows) x eastings ``x``
-        (columns), metres."""
-        ay = y[:, None] * ky + ph
-        ax = x[:, None] * kx
-        return (np.sin(ay) @ np.cos(ax).T + np.cos(ay) @ np.sin(ax).T) \
-            / np.sqrt(n / 2.0)
-
-    crs = CRS.utm(33, True)
-    x0, y0 = 500_000.0, 5_000_000.0
-    emit_grid = Grid(crs, x0, y0, 60.0, 60.0, 120, 110)
-    s2_grid = Grid(crs, x0, y0, 10.0, 10.0, 660, 600)
-    emit = world((np.arange(110) + 0.5) * 60.0,
-                 (np.arange(120) + 0.5) * 60.0).astype(np.float32)
-    dy, dx = shift
-    sw = world((np.arange(600) - dy + 0.5) * 10.0,
-               (np.arange(660) - dx + 0.5) * 10.0)
-    stack = np.stack([np.clip(3000 + g * sw, 0, 65534)
-                      for g in (600.0, 700.0, 800.0)]).astype(np.uint16)
-    stack[:, :20] = int(S2_NODATA)
-    return (torch.from_numpy(emit).to(dev), emit_grid,
-            torch.from_numpy(stack).to(dev), s2_grid)
-
-
 @pytest.mark.gpu
 def test_coregister_stack_launches_once_a_success(cuda_device, monkeypatch):
     """``coregister_stack`` on the card: each successful attempt launches
@@ -180,7 +141,7 @@ def test_coregister_stack_launches_once_a_success(cuda_device, monkeypatch):
     ``coreg.deshift`` span (a B08 that is not in the stack's bands is no
     attempt that deshifts); the product equals the eager chain's, the
     rule forced off, bit for bit."""
-    emit, emit_grid, stack, s2_grid = _scene(cuda_device)
+    emit, emit_grid, stack, s2_grid = coreg_scene(cuda_device)
     cfg = CoregConfig(window_size=(128, 128), grid_res=150.0,
                       min_reliability=25.0)
 

@@ -3,8 +3,8 @@
 to 0 just before it and read just after. Each demo asserts its own
 accuracy; the numbers it returns are held to the bounds below, and to
 their JAX twins' on the CPU in tests/test_torch_examples*.py. The
-launch counts and each demo's seconds go into the junit XML as
-properties (``chip_smoke.py`` prints them)."""
+launch counts and each demo's seconds go into the junit XML report
+(``--junitxml``) as properties."""
 
 import json
 import runpy

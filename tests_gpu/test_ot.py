@@ -74,7 +74,7 @@ def test_sinkhorn_long_rows_kernel_matches_plain_on_gpu(cuda_device, rng,
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,m", [(128, 100_000), (1024, 20_000), (8, 6400)])
 def test_sliced_long_rows_on_gpu(cuda_device, rng, n, m):
-    """The sliced long-rows kernels at the shapes chip_smoke.py times (m a
+    """The sliced long-rows kernels at the full-scale long-rows shapes (m a
     multiple of 4: the 16-byte loads; one chunk, four chunks, eight)
     against the plain version at 50 sweeps with the bounds of the one-pass
     test; two runs bit-equal; the two-read kernels, forced, agree with

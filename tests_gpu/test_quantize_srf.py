@@ -4,6 +4,8 @@ versions. Moved from tests/test_torch_quantize_srf.py, whose CPU tests
 hold the plain versions to the JAX package's quantizers and
 ``pallas_srf_synthesize``."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -59,27 +61,63 @@ def test_kernels_match_plain_on_card(cuda, rng):
     assert launch_counts == {tq.KERNEL_NAME: 2, tsrf.KERNEL_NAME: 1}
 
 
+#: the SRF shapes at full size: SRF_WIDE_ROWS seeded rows each, drawn in
+#: this order from one generator of seed 5 (``_wide_rows``), with the
+#: route the rule gives each: past the warp kernel's limits (tiled with
+#: 32-row tiles, generic) and an even band count inside them (warp)
+SRF_WIDE_ROWS = 200_000
+SRF_WIDE_SHAPES = ((401, 20, "tiled"), (400, 20, "generic"),
+                   (244, 13, "warp"))
+
+
+@functools.lru_cache(maxsize=1)
+def _wide_rows():
+    rng = np.random.default_rng(5)
+    return {(b, s): (rng.random((SRF_WIDE_ROWS, b), dtype=np.float32),
+                     rng.random((b, s), dtype=np.float32),
+                     rng.random(SRF_WIDE_ROWS) > 0.1)
+            for b, s, _ in SRF_WIDE_SHAPES}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s", [(285, 13), (285, 40), (401, 20), (400, 20),
-                                 (244, 5)])
-def test_srf_routes_match_plain_on_card(cuda, rng, b, s):
+@pytest.mark.parametrize("b,s,rows,route", [
+    (285, 13, 1003, None), (285, 40, 1003, None), (401, 20, 1003, None),
+    (400, 20, 1003, None), (244, 5, 1003, None),
+    *((b, s, SRF_WIDE_ROWS, r) for b, s, r in SRF_WIDE_SHAPES)])
+def test_srf_routes_match_plain_on_card(cuda, rng, b, s, rows, route):
     """Every route of the SRF kernel on the card (tiled with 64- and
-    32-row tiles, S past 16, the generic kernel, the warp kernel) on 1003
-    rows, once from a 16-byte-aligned base and once from a view 3 rows
-    in: within 3e-6 of the largest output of its plain version, the fill
-    exact, one launch each under the route's own counter; the tiled
-    kernel's shared-memory plan equals the wrapper's mirror."""
-    x = T(rng.random((1003, b)).astype(np.float32)).to(cuda)
-    W = T(rng.random((b, s)).astype(np.float32)).to(cuda)
-    v = T(rng.random(1003) > 0.3).to(cuda)
-    for rows in (slice(None), slice(3, None)):
-        reset_launch_counts()
-        got = tsrf.pallas_srf_synthesize(x[rows], W, v[rows])
-        want = tsrf.srf_synthesize_reference(x[rows], W, v[rows])
-        assert launch_counts == {
-            tsrf.ROUTE_NAMES[tsrf.srf_route(b, s)[0]]: 1}
-        assert float((got - want).abs().max()) <= 3e-6 * float(want.max())
-        assert bool((got[~v[rows]] == -9999.0).all())
+    32-row tiles, S past 16, the generic kernel, the warp kernel) on
+    1003 rows and on SRF_WIDE_ROWS, once from a 16-byte-aligned base and
+    once from a view 3 rows in: within 3e-6 of the largest output of its
+    plain version, the fill exact, one launch each under the route's own
+    counter (at full size the route the rule must give); where the route
+    is the warp kernel's, the generic kernel forced onto the same rows
+    agrees too; the tiled kernel's shared-memory plan equals the
+    wrapper's mirror."""
+    if rows == SRF_WIDE_ROWS:
+        x, W, v = (T(a).to(cuda) for a in _wide_rows()[(b, s)])
+        assert tsrf.srf_route(b, s)[0] == route
+    else:
+        x = T(rng.random((rows, b)).astype(np.float32)).to(cuda)
+        W = T(rng.random((b, s)).astype(np.float32)).to(cuda)
+        v = T(rng.random(rows) > 0.3).to(cuda)
+    forced = [None] + [tsrf.GENERIC] * (tsrf.srf_route(b, s)[0] == tsrf.WARP)
+    rule = tsrf.srf_route
+    for view in (slice(None), slice(3, None)):
+        want = tsrf.srf_synthesize_reference(x[view], W, v[view])
+        for stand_in in forced:
+            name = tsrf.ROUTE_NAMES[stand_in or rule(b, s)[0]]
+            if stand_in:
+                tsrf.srf_route = lambda b, s: (stand_in, 0)
+            try:
+                reset_launch_counts()
+                got = tsrf.pallas_srf_synthesize(x[view], W, v[view])
+            finally:
+                tsrf.srf_route = rule
+            assert launch_counts == {name: 1}
+            assert float((got - want).abs().max()) <= 3e-6 * float(
+                want.max())
+            assert bool((got[~v[view]] == -9999.0).all())
     from hyperres_torch.kernels._build import load_library
     lib = load_library("srf_synthesize")
     for r in (2, 1):

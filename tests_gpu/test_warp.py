@@ -1,8 +1,11 @@
 """The scanline kernel (``csrc/scanline_warp.cu``) on the card against
 its plain version: both banded passes and the dense route, at the
-warp's real channel widths, and ``warp_two_pass`` launching it. Moved
+warp's real channel widths (on a sheared geometry and on the scale-0.25
+bench scene's warp operands), and ``warp_two_pass`` launching it. Moved
 from tests/test_torch_warp.py and tests/test_torch_resample.py, whose
 CPU tests hold the plain versions to the JAX package."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -16,6 +19,9 @@ from hyperres_torch.kernels import warp as twarp
 T = torch.from_numpy
 NODATA = -9999.0
 TWO_PASS_ATOL = 1e-5
+#: the bench scene's scale for the second geometry
+CHECK_SCALE = 0.25
+GEOMETRIES = ["wide_150x600", f"bench_{CHECK_SCALE}"]
 
 
 def _wide_geometry():
@@ -28,15 +34,40 @@ def _wide_geometry():
     return rows, host.scanline_cstar(rows, cols, ho)
 
 
+@functools.lru_cache(maxsize=1)
+def _bench_operands():
+    """The scale-CHECK_SCALE bench scene's warp operands on the card as its
+    plan takes them: the extended source, c* and the rows field."""
+    import bench_torch
+    from hyperres_torch.testing.bench_scene import generate_scene
+
+    small = generate_scene(CHECK_SCALE, 0)
+    plan = bench_torch.build_plan(small, "cuda:0")
+    return (twarp.orthowarp_src_ext(T(small["raw"]).to("cuda:0"),
+                                    plan._flat_idx, plan._valid),
+            plan._cstar, plan._wr)
+
+
+def _operands(geometry, dev, rng):
+    """(source, c*, rows): ``_wide_geometry`` with a seeded 286-channel
+    source, or ``_bench_operands``."""
+    if geometry != "wide_150x600":
+        return _bench_operands()
+    rows, cstar = _wide_geometry()
+    src = T(rng.random((150, 600, 286)).astype(np.float32)).to(dev)
+    return src, T(cstar).to(dev), T(rows).to(dev)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("geometry", GEOMETRIES)
 @pytest.mark.parametrize("method", ["cubic", "bilinear"])
-def test_scanline_kernel_matches_plain_on_gpu(cuda_device, method, rng):
+def test_scanline_kernel_matches_plain_on_gpu(cuda_device, method, rng,
+                                              geometry):
     """The CUDA kernel == its plain version on the card, both passes, at
     the warp's real channel width (286), to 1e-5 (same taps; FMA
-    contraction differs); each launch counts once."""
-    rows, cstar = _wide_geometry()
-    src = T(rng.random((150, 600, 286)).astype(np.float32)).to(cuda_device)
-    cstar_d, rows_d = T(cstar).to(cuda_device), T(rows).to(cuda_device)
+    contraction differs; pass 2 on the kernel's pass-1 output); each
+    launch counts once."""
+    src, cstar_d, rows_d = _operands(geometry, cuda_device, rng)
     reset_launch_counts()
     h = banded.scanline_resample(src, cstar_d, 1, method)
     out = banded.scanline_resample(h, rows_d, 0, method)
@@ -49,15 +80,15 @@ def test_scanline_kernel_matches_plain_on_gpu(cuda_device, method, rng):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("geometry", GEOMETRIES)
 @pytest.mark.parametrize("method", ["cubic", "bilinear"])
-def test_dense_kernel_matches_plain_on_gpu(cuda_device, method, rng):
+def test_dense_kernel_matches_plain_on_gpu(cuda_device, method, rng,
+                                           geometry):
     """The dense route on the card == its dense plain version, both
     passes as the warp runs them (pass 2 on pass 1's natural layout), at
     the warp's channel width (286), to 1e-5; one launch per pass under
     the dense route's own counter."""
-    rows, cstar = _wide_geometry()
-    src = T(rng.random((150, 600, 286)).astype(np.float32)).to(cuda_device)
-    cstar_d, rows_d = T(cstar).to(cuda_device), T(rows).to(cuda_device)
+    src, cstar_d, rows_d = _operands(geometry, cuda_device, rng)
     reset_launch_counts()
     h = banded.scanline_resample_dense(src, cstar_d, method)
     out = banded.scanline_resample_dense(h, rows_d, method, axis=0)
