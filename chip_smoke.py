@@ -3,7 +3,7 @@
 repository root as ``python3 chip_smoke.py`` (``--table``: the kernel
 table alone).
 
-It builds the seven kernels (``csrc/*.cu``, one nvcc each, in parallel;
+It builds the eight kernels (``csrc/*.cu``, one nvcc each, in parallel;
 each build's seconds and ptxas report printed), runs the card suite
 (``pytest tests_gpu`` in this process: each kernel's edge cases and, in
 ``tests_gpu/fullscale``, every main path at its real size), then the
@@ -53,7 +53,7 @@ from card_inputs import (  # noqa: E402
 )
 
 LIBRARIES = ("scanline_warp", "sr_predict", "sinkhorn_duals", "quantize_u16",
-             "srf_synthesize", "upsample_apply", "deshift_warp")
+             "srf_synthesize", "upsample_apply", "deshift_warp", "sep_resample")
 #: the long-rows row: the first of tests_gpu/fullscale's long-rows shapes
 SINKHORN_LONG_ROWS = (128, 100_000)
 #: the coregistration cell's stack and a shift model of its kind (px):
@@ -601,6 +601,43 @@ def _deshift_case(inp):
                 u16_steps(0), bound(4.0 * n, 48.0 * n), reps=(10, 1))
 
 
+def _resample_case(inp):
+    """``card_inputs``' seeded RESAMPLE_SRC band (nodata over two
+    off-swath corners and scattered, NaN) resampled cubically onto
+    RESAMPLE_DST: the launch on taps made once, against the dense route
+    it replaces on the card (``warp._interp_matrix`` and
+    ``separable_resample_matmul``); its form "per call" is the wrapper,
+    which builds and uploads the taps each call."""
+    from hyperres_torch.kernels import sep_resample as sr
+    from hyperres_torch.kernels import warp as twarp
+    from hyperres_torch.kernels.host import separable_index_axes
+
+    src, dst = card_inputs.RESAMPLE_SRC, card_inputs.RESAMPLE_DST
+    (hs, ws, _), (hd, wd, _, _) = src, dst
+    nodata = card_inputs.EMIT_NODATA
+    x = card_inputs.resample_source(np.random.default_rng(22), hs, ws, 1,
+                                    nodata, inp.dev)
+    sg, dg = card_inputs.resample_grids(src, dst)
+    idx_r, idx_c = separable_index_axes(sg, dg)
+    taps = sr.device_taps(idx_r, idx_c, x.shape, "cubic", inp.dev)
+
+    def plain():
+        Wr = twarp._interp_matrix(idx_r, hs, "cubic", inp.dev)
+        Wc = twarp._interp_matrix(idx_c, ws, "cubic", inp.dev)
+        return twarp.separable_resample_matmul(x, Wr, Wc, nodata=nodata,
+                                               fill=np.nan)
+    # the band read once and the f32 result written once; two 4-tap
+    # passes of a multiply-add each, values and mass
+    work = bound(4.0 * (hs * ws + hd * wd),
+                 2.0 * 2.0 * 4.0 * (hd * ws + hd * wd))
+    per_call = Case(lambda: sr.sep_resample(x, idx_r, idx_c, "cubic",
+                                            nodata=nodata, fill=np.nan),
+                    plain, bit_equal, work, reps=(20, 0))
+    return Case(lambda: sr.launch(x, taps, nodata=nodata, fill=np.nan),
+                plain, bit_equal, work, reps=(20, 2),
+                forms={"per call": per_call})
+
+
 ROWS = [
     Row("scanline_resample_pass1", "hyperres_torch/csrc/scanline_warp.cu",
         "hyperres/kernels/pallas_ops.py:390", _pass_case(1), "plan"),
@@ -631,6 +668,9 @@ ROWS = [
     Row("deshift_warp", "hyperres_torch/csrc/deshift_warp.cu",
         "none (hyperres/coreg/local.py:356, the plain warp_interpolate, "
         "left to XLA)", _deshift_case, "coregister_stack"),
+    Row("sep_resample", "hyperres_torch/csrc/sep_resample.cu",
+        "none (hyperres/kernels/warp.py:1155, the same-CRS transfer left to "
+        "two XLA dots)", _resample_case, "coregister_stack"),
 ]
 
 

@@ -3,10 +3,10 @@
 These functions are plain NumPy, but in ``hyperres`` they live in
 modules that import JAX at module level, so they cannot be imported on
 a machine without JAX. The copies below are verbatim (bar ``xp``
-defaults, and ``separable_taps``: the bilinear / cubic taps of
-``separable_weight_matrix`` split out, so that a device can place
-them); ``tests/test_torch_host.py`` holds each one ``array_equal`` to
-its original. Each names its source line.
+defaults, and ``separable_tap_table`` / ``separable_taps``: the
+bilinear / cubic taps of ``separable_weight_matrix`` split out, so that a
+device can place them); ``tests/test_torch_host.py`` holds each one
+``array_equal`` to its original. Each names its source line.
 """
 
 from __future__ import annotations
@@ -170,6 +170,38 @@ def separable_weight_matrix(idx_1d: np.ndarray, src_size: int,
     return W
 
 
+def separable_tap_table(idx_1d: np.ndarray, src_size: int,
+                        method: str = "bilinear"
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The bilinear / cubic taps of :func:`separable_weight_matrix` per
+    destination index: ``first`` (Dst,) int64, the source index of the
+    first tap; ``weights`` (T, Dst) float32, tap t at ``first + t`` (T = 2
+    bilinear, 4 cubic); ``kept`` (T, Dst) bool, the taps that lie in the
+    source of a destination whose centre does (a dropped tap weighs 0)."""
+    idx = np.asarray(idx_1d, dtype=np.float64).reshape(-1)
+    i0 = np.floor(idx)
+    frac = idx - i0
+    # the weights of each distinct fraction (a grid pair's index axes
+    # hold few), then gathered
+    t = np.unique(frac)
+    if method == "bilinear":
+        offsets = np.arange(2)
+        w = np.stack([1.0 - t, t])
+    elif method == "cubic":
+        # |t - o| is t + 1, t, 1 - t, 2 - t exactly
+        offsets = np.arange(-1, 3)
+        w = cubic_kernel_weight(t - offsets[:, None], xp=np)
+    else:
+        raise ValueError(f"Unknown method {method!r}")
+    weights = np.take(w.astype(np.float32), np.searchsorted(t, frac), axis=1)
+    first = i0.astype(np.int64) + offsets[0]
+    k = np.arange(len(offsets))[:, None]
+    kept = ((first >= -k) & (first < src_size - k)
+            & (idx >= -0.5) & (idx <= src_size - 0.5))
+    weights[~kept] = 0.0
+    return first, weights, kept
+
+
 def separable_taps(idx_1d: np.ndarray, src_size: int,
                    method: str = "bilinear"
                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -177,26 +209,13 @@ def separable_taps(idx_1d: np.ndarray, src_size: int,
     ``"bilinear"`` / ``"cubic"``: destination rows, source columns and
     float32 weights (two or four taps per destination, tap by tap), no
     two at one place."""
-    idx = np.asarray(idx_1d, dtype=np.float64)
-    i0 = np.floor(idx).astype(np.int64)
-    t = idx - i0
-    if method == "bilinear":
-        taps = [(0, 1.0 - t), (1, t)]
-    elif method == "cubic":
-        k = lambda x: cubic_kernel_weight(x, xp=np)
-        taps = [(-1, k(t + 1.0)), (0, k(t)), (1, k(1.0 - t)),
-                (2, k(2.0 - t))]
-    else:
-        raise ValueError(f"Unknown method {method!r}")
-    rows_d = np.arange(idx.shape[0])
-    centre_in = (idx >= -0.5) & (idx <= src_size - 0.5)
+    first, weights, kept = separable_tap_table(idx_1d, src_size, method)
+    rows_d = np.arange(first.shape[0])
     rows, cols, vals = [], [], []
-    for off, w in taps:
-        cols_s = i0 + off
-        ok = (cols_s >= 0) & (cols_s < src_size) & centre_in
+    for t, ok in enumerate(kept):
         rows.append(rows_d[ok])
-        cols.append(cols_s[ok])
-        vals.append(w[ok].astype(np.float32))
+        cols.append(first[ok] + t)
+        vals.append(weights[t, ok])
     return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
 
 

@@ -13,13 +13,16 @@
   ``_taploop`` / ``_chunked`` forms) and :func:`block_average`: the
   gather kernels (``warp.py:126-239``).
 - :func:`resample_to_grid`: the high-level grid transfer with the
-  reference's routes in the reference's order (``warp.py:1094``).
+  reference's routes in the reference's order (``warp.py:1094``); on a
+  CUDA device its same-CRS bilinear / cubic transfers are one kernel
+  (:mod:`.sep_resample`).
 - :func:`separable_resample_fast`: the integer-aligned same-CRS grid
   transfers (10 m -> 60 m box average, 60 m -> 10 m bilinear) as
   reshape block sums and phase-cycled lerps (``warp.py:449-618``), in
   the channel-minor (H, W, C) layout.
 - :func:`separable_resample_matmul`: the dense weight-matrix transfer
-  for grids without an integer-aligned spec (``warp.py:302``).
+  for grids without an integer-aligned spec (``warp.py:302``); the
+  same-CRS bilinear / cubic route's plain version, which the CPU takes.
 
 The float64 projection math and the index fields stay on the host
 (:mod:`.host`).
@@ -36,7 +39,9 @@ import torch.nn.functional as F
 from ..core.constants import NO_DATA_VALUE
 from ..core.grid import Grid
 from ..device import resolve_device
+from ..utils.profiling import count
 
+from . import sep_resample as _sep
 from .banded import (
     check_precision, scanline_resample, scanline_resample_dense,
 )
@@ -557,7 +562,13 @@ def resample_tensor_to_grid(arr: torch.Tensor, src_grid: Grid,
 
     sep = separable_index_axes(src_grid, dst_grid)
     if sep is not None and method_eff in ("bilinear", "cubic"):
-        # same-CRS transfers as two dense products, in exact f32
+        if _sep.takes_kernel(dev):
+            out = _sep.sep_resample(arr.to(torch.float32).contiguous(),
+                                    sep[0], sep[1], method_eff,
+                                    nodata=nodata, fill=fill)
+            count(_sep.RESAMPLE_COUNTER)
+            return out
+        # on the CPU: two dense products, in exact f32
         Wr = _interp_matrix(sep[0], src_grid.height, method_eff, dev)
         Wc = _interp_matrix(sep[1], src_grid.width, method_eff, dev)
         return separable_resample_matmul(arr, Wr, Wc, nodata=nodata,
@@ -608,7 +619,9 @@ def resample_to_grid(data: np.ndarray, src_grid: Grid, dst_grid: Grid, *,
     Routes, in the reference's order: an aligned integer-ratio
     ``"average"`` whose window lies inside the source is an exact block
     mean; any other same-CRS average the area-weighted separable
-    product; same-CRS bilinear / cubic two dense f32 products; a
+    product; same-CRS bilinear / cubic on a CUDA device one kernel
+    (:mod:`.sep_resample`, counted as ``resample.kernel`` in the open
+    span), on the CPU two dense f32 products; a
     cross-CRS bilinear / cubic transfer the two-pass scanline warp
     (:func:`warp_two_pass`, the scanline kernel) when its row field is
     monotone per column and ``kernel`` is ``"two_pass"``, or ``"auto"``

@@ -290,6 +290,69 @@ def test_interp_matrix_is_the_host_weight_matrix(method):
             separable_weight_matrix(idx, 50, method))
 
 
+#: index axes for the packed taps: fractional source indices into a
+#: 50 px source
+TAP_AXES = {
+    "centres_outside": np.linspace(-3.0, 52.0, 400),
+    "taps_off_both_ends": np.concatenate([np.linspace(-0.5, 1.2, 40),
+                                          np.linspace(47.8, 49.5, 40)]),
+    "upsample": np.arange(300) / 6.0 - 5.0 / 12.0,
+    "downsample": np.arange(8) * 6.0 + 2.5,
+    "scattered": np.random.default_rng(4).uniform(-2.0, 51.0, 100),
+}
+
+
+@pytest.mark.parametrize("axis", list(TAP_AXES))
+@pytest.mark.parametrize("method", ["bilinear", "cubic"])
+def test_packed_taps_are_the_host_weight_matrix(method, axis):
+    """The resample kernel's packed taps (``sep_resample.axis_taps``),
+    placed at ``start + t``, are ``separable_weight_matrix`` bit for bit:
+    every non-zero entry, no other, taps dropped off either end, centres
+    outside the source all 0; the sums are the weights' in tap order."""
+    from hyperres_torch.kernels.host import separable_weight_matrix
+    from hyperres_torch.kernels.sep_resample import TAPS, axis_taps
+
+    idx = TAP_AXES[axis].astype(np.float32)
+    taps = axis_taps(idx, 50, method)
+    n = TAPS[method]
+    assert taps.weights.shape == (n, len(idx))
+    assert taps.start.min() >= 1 - n and taps.start.max() <= 49
+    dense = np.zeros((len(idx), 50 + 2 * n), dtype=np.float32)
+    for t in range(n):   # padded by n on both sides for dropped taps
+        dense[np.arange(len(idx)), taps.start + n + t] = taps.weights[t]
+    assert not dense[:, :n].any() and not dense[:, -n:].any()
+    np.testing.assert_array_equal(dense[:, n:-n],
+                                  separable_weight_matrix(idx, 50, method))
+    sums = np.zeros(len(idx), dtype=np.float32)
+    for t in range(n):
+        sums += taps.weights[t]
+    np.testing.assert_array_equal(taps.sums, sums)
+
+
+@pytest.mark.parametrize("bands", [1, 3, 285])
+@pytest.mark.parametrize("axis", ["upsample", "downsample", "cell"])
+def test_tiles_stage_every_tap(axis, bands):
+    """Each column tile the resample kernel stages holds every tap of its
+    destinations (``start - lo`` and ``start + T - lo`` within the span),
+    a tile's columns and bands fill at most the block's threads, and its
+    stage fits the shared memory: up- and downsampling, 1 to 285
+    bands."""
+    from hyperres_torch.kernels import sep_resample as sr
+
+    idx = {"upsample": np.arange(403) / 6.0 - 5.0 / 12.0,
+           "downsample": np.arange(67) * 6.0 + 2.5,
+           "cell": np.arange(9309) / 6.0 - 5.0 / 12.0}[axis]
+    taps = sr.axis_taps(idx.astype(np.float32), 1550, "cubic")
+    tr, te, bc, span, lo = sr.tile(taps, 389, bands)
+    assert te * bc <= sr.THREADS and bc * -(-bands // bc) >= bands
+    assert 1 <= tr <= sr.MAX_TILE_ROWS
+    assert tr * span * bc * 8 <= sr.STAGE_BYTES
+    assert len(lo) == -(-len(idx) // te)
+    tile_of = np.arange(len(idx)) // te
+    assert (taps.start >= lo[tile_of]).all()
+    assert (taps.start + 4 <= lo[tile_of] + span).all()
+
+
 @pytest.mark.parametrize("device,dtype,method,want", [
     ("cpu", torch.uint16, "cubic", False),
     ("cpu", torch.float32, "bilinear", False),

@@ -442,6 +442,85 @@ def test_resample_same_crs_nearest(rng, monkeypatch):
     np.testing.assert_array_equal(got, want)
 
 
+#: (method, grid pair) -> the route a tensor on a CUDA device takes
+CUDA_ROUTES = {
+    ("bilinear", "same"): "sep_resample",
+    ("cubic", "same"): "sep_resample",
+    ("nearest", "same"): "warp_nearest",
+    ("average", "same"): "separable_resample_matmul",
+    ("average", "block"): "block_average",
+    ("cubic", "cross"): "warp_interpolate",
+    ("average", "cross"): "warp_interpolate",
+}
+
+
+@pytest.mark.parametrize("method,pair", list(CUDA_ROUTES))
+def test_resample_route_rule_on_a_cuda_device(method, pair, rng,
+                                              monkeypatch):
+    """The resample kernel's rule (``sep_resample.takes_kernel``) made to
+    hold, as for a tensor on a CUDA device: a same-CRS bilinear or cubic
+    transfer takes the kernel, once, counted as ``resample.kernel`` in the
+    open span, and never the dense products; ``nearest``, ``average`` and
+    cross-CRS grids keep their routes, uncounted."""
+    from hyperres_torch.kernels import sep_resample as sr
+    from hyperres_torch.utils import profiling
+
+    seen = _spy_routes(monkeypatch)
+
+    def kernel(arr, idx_r, idx_c, method, nodata=None, fill=NODATA):
+        seen.append("sep_resample")
+        return torch.zeros((len(idx_r), len(idx_c), arr.shape[-1]))
+
+    monkeypatch.setattr(sr, "takes_kernel", lambda device: True)
+    monkeypatch.setattr(sr, "sep_resample", kernel)
+    if pair == "cross":
+        src, _, dst, _ = _geo_to_utm()
+    elif pair == "block":
+        src = Grid(CRS.utm(33, True), 0.0, 0.0, 10.0, 10.0, 60, 66)
+        dst = Grid(CRS.utm(33, True), 120.0, -60.0, 60.0, 60.0, 6, 7)
+    else:
+        src = Grid(CRS.utm(33, True), 0.0, 0.0, 60.0, 60.0, 24, 20)
+        dst = Grid(CRS.utm(33, True), -35.0, 25.0, 25.0, 25.0, 60, 50)
+    data = T(_img(rng, size=(src.height, src.width), b=2))
+    profiling.clear()
+    with profiling.tracing(), profiling.span("caller"):
+        twarp.resample_tensor_to_grid(data, src, dst, method=method,
+                                      nodata=NODATA)
+    rec = [r for r in profiling.records() if r.name == "caller"][-1]
+    profiling.clear()
+    want = CUDA_ROUTES[(method, pair)]
+    assert seen == [want]
+    assert rec.counts.get(sr.RESAMPLE_COUNTER, 0) == int(want == "sep_resample")
+
+
+@pytest.mark.parametrize("method", ["bilinear", "cubic"])
+@pytest.mark.parametrize("nodata", [None, NODATA])
+def test_resample_same_crs_on_the_cpu_is_the_dense_route(method, nodata,
+                                                         rng):
+    """On the CPU the rule fails and a same-CRS bilinear / cubic transfer
+    is the dense route, bit for bit: ``_interp_matrix``'s matrices through
+    ``separable_resample_matmul``; the kernel's wrapper refuses a CPU
+    tensor."""
+    from hyperres_torch.kernels import sep_resample as sr
+
+    src = Grid(CRS.utm(33, True), 0.0, 0.0, 60.0, 60.0, 24, 20)
+    dst = Grid(CRS.utm(33, True), -35.0, 25.0, 10.0, 10.0, 150, 130)
+    data = T(_img(rng, size=(20, 24), b=3, holes=nodata is not None))
+    assert not sr.takes_kernel(data.device)
+    got = twarp.resample_tensor_to_grid(data, src, dst, method=method,
+                                        nodata=nodata, fill=np.nan)
+    idx_r, idx_c = host.separable_index_axes(src, dst)
+    cpu = torch.device("cpu")
+    want = twarp.separable_resample_matmul(
+        data, twarp._interp_matrix(idx_r, 20, method, cpu),
+        twarp._interp_matrix(idx_c, 24, method, cpu), nodata=nodata,
+        fill=np.nan)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+    with pytest.raises(ValueError, match="CUDA"):
+        sr.sep_resample(data, idx_r, idx_c, method)
+
+
 @pytest.mark.parametrize("method", ["bilinear", "cubic", "average",
                                     "nearest"])
 def test_resample_cross_crs_gather(method, rng, monkeypatch):

@@ -68,6 +68,38 @@ SR_STREAM_BX, SR_STREAM_DEGREE = 12, 4
 SRF_TOL = 1e-5
 #: export_reflectance_u16's hi for (0, 1) -> 0..10000
 REFL_HI_EFF = 6.5535
+#: the coregistration cell's resample: the EMIT band at 60 m onto the S2
+#: grid at 10 m anchored on its corner, cubic, with the EMIT nodata value;
+#: (rows, columns, m) and (rows, columns, m, offset in m)
+EMIT_NODATA = -9999.0
+RESAMPLE_SRC = (1523, 1550, 60.0)
+RESAMPLE_DST = (9140, 9309, 10.0, (0.0, 0.0))
+
+
+def resample_grids(src, dst):
+    """Same-CRS UTM grids of ``src`` (rows, columns, m) and ``dst`` (rows,
+    columns, m, (x, y) offset in m)."""
+    from hyperres_torch.core.crs import CRS
+    from hyperres_torch.core.grid import Grid
+
+    crs = CRS.utm(33, True)
+    (hs, ws, ds), (hd, wd, dd, (ox, oy)) = src, dst
+    x0, y0 = 450000.0, 5800000.0
+    return (Grid(crs, x0, y0, ds, ds, ws, hs),
+            Grid(crs, x0 + ox, y0 + oy, dd, dd, wd, hd))
+
+
+def resample_source(rng, hs, ws, b, nodata, dev):
+    """(hs, ws, b) seeded values in [0, 1); with a nodata value, nodata
+    over two off-swath corners and 2 % scattered, and 0.1 % NaN."""
+    x = rng.random((hs, ws, b), dtype=np.float32)
+    if nodata is not None:
+        r = np.arange(hs)[:, None] / hs
+        c = np.arange(ws)[None, :] / ws
+        x[(r + c < 0.3) | (r + c > 1.7)] = nodata
+        x[rng.random(x.shape) < 0.02] = nodata
+        x[rng.random(x.shape) < 0.001] = np.nan
+    return torch.from_numpy(x).to(dev)
 
 
 def counted(fn):
