@@ -21,7 +21,8 @@ gets its reference's bits.
 
 It replaces ``pallas_quantize_u16`` (``pallas_ops.py:122``). On a CUDA
 tensor the wrapper launches the hand-written kernel
-``csrc/quantize_u16.cu`` (or raises); on a CPU tensor it runs
+``csrc/quantize_u16.cu`` (or raises), and counts the launch under
+``quantize.kernel`` in the innermost open span; on a CPU tensor it runs
 :func:`quantize_u16_reference`, the plain PyTorch version.
 """
 
@@ -34,9 +35,12 @@ import numpy as np
 import torch
 
 from ..device import count_launch, launch_error
+from ..utils.profiling import count
 
 #: launch-counter name
 KERNEL_NAME = "quantize_u16"
+#: the span counter of the kernel's launches (``utils.profiling.count``)
+QUANT_COUNTER = "quantize.kernel"
 FORMS = ("stats", "pallas")
 
 Bound = Union[float, torch.Tensor]
@@ -141,6 +145,7 @@ def quantize_u16(x: torch.Tensor, lo: Bound, hi: Bound,
     if rc != 0:
         raise launch_error("quantize_u16 kernel launch", rc)
     count_launch(KERNEL_NAME)
+    count(QUANT_COUNTER)
     return out
 
 

@@ -2,23 +2,30 @@
 (``hyperres/ortho/pipeline.py``, the ``nc_to_envi`` equivalent of
 EMIT_data/emit_proj.py:563-1356).
 
-Flow per product (DATA / LOC / OBS):
+Flow per granule:
 
-1. host: open the granule (the framework's HDF5 codec), GLT -> flat
-   indices, the destination's source-index fields;
-2. device: the DATA cube streams in band chunks (:mod:`..io.ingest`:
+1. host: open the granule (the framework's HDF5 codec); the
+   :class:`OrthoGeometry` of its GLT onto the S2-anchored UTM grid (GLT
+   -> flat indices and validity, the destination's source-index fields,
+   the scanline columns), built once and held on the device;
+2. reads: the DATA cube streams in band chunks (:mod:`..io.ingest`:
    read, optionally quantize to u16 / u12, pinned copy on a side stream,
    dequantize on the card), and each chunk is GLT-gathered and warped
-   onto the S2-anchored UTM grid by the two-pass scanline warp
+   onto the UTM grid by the two-pass scanline warp
    (``kernels.warp.orthowarp_two_pass``, the scanline CUDA kernel) or,
    with ``warp_kernel="taploop"``, the exact tap-loop gathers
    (``orthowarp_taploop``), and written into its band slice of the UTM
    cube in place. With ``fused_orthowarp=False``, or a resampling other
-   than cubic / bilinear, the cube is assembled whole, GLT-gathered
-   (``glt_gather``) and resampled (``resample_to_grid``'s routes);
-3. device: the u16 GeoTIFF products are quantized on the card (the
-   quantize CUDA kernel, validity tested in the kernel) and only the
-   u16 arrays come back;
+   than cubic / bilinear, the raw cube is assembled whole on the device.
+   LOC and OBS are read whole, and the L2A quality mask;
+3. device: :func:`orthorectify_cube`, the resident core, makes every
+   product from tensors on the device and returns it there: the DATA
+   cube's warp where no fold made it (the quality mask folded into its
+   validity), the LOC and OBS warps, each by the configuration's route
+   (:func:`warp_route`: the fused warp, or ``glt_gather`` and
+   ``resample_to_grid``'s routes), and the u16 GeoTIFF codes (the
+   quantize CUDA kernel, validity tested in the kernel; the OBS ranges
+   the one read back);
 4. host: ENVI + GeoTIFF + XML sidecar writes, with an ``info`` ledger
    recording every stage, timing and raster geometry.
 
@@ -71,6 +78,7 @@ from ..kernels.host import prepare_glt, scanline_cstar, source_index_field
 from ..kernels.warp import (
     orthowarp_taploop, orthowarp_two_pass, resample_tensor_to_grid,
 )
+from ..utils.profiling import count, span
 from . import products
 
 # EMIT L1B OBS band names (the 11 geometry bands,
@@ -199,6 +207,254 @@ class _StageTimer:
         self.info[name] = rec
 
 
+class _NoTimer:
+    """The resident core's default: no stage record, no synchronise."""
+
+    @staticmethod
+    def record(name: str, t0: float, **extra):
+        pass
+
+
+def warp_route(config: OrthoConfig) -> Optional[str]:
+    """The warp a configuration takes: ``"two_pass"`` (the fused GLT +
+    two-pass scanline kernel), ``"taploop"`` (the fused tap-loop
+    gathers), or None (the two-step ``glt_gather`` +
+    ``resample_tensor_to_grid``: ``fused_orthowarp=False``, or a
+    resampling other than cubic / bilinear)."""
+    if not (config.fused_orthowarp
+            and config.resampling in ("cubic", "bilinear")):
+        return None
+    return "two_pass" if config.warp_kernel == "two_pass" else "taploop"
+
+
+@dataclass
+class OrthoGeometry:
+    """One granule's GLT onto one S2-anchored UTM grid, held on the
+    device: built once per granule and grid (:meth:`build`), read by
+    every :func:`orthorectify_cube` call.
+
+    - ``flat_idx`` / ``valid`` (Ho, Wo): ``prepare_glt``'s raw pixel
+      index (int32) and validity;
+    - ``rows`` / ``cols`` (Hd, Wd): ``source_index_field``'s fractional
+      ortho indices of each UTM pixel centre;
+    - ``cstar`` (Ho, Wd): ``scanline_cstar``'s pass-1 columns (None
+      where it was not built: only the two-pass warp reads it);
+    - ``glt_diag``: the GLT counts of the ledger's ``glt_diag``."""
+
+    flat_idx: torch.Tensor
+    valid: torch.Tensor
+    rows: torch.Tensor
+    cols: torch.Tensor
+    cstar: Optional[torch.Tensor]
+    raw_hw: Tuple[int, int]
+    ortho_grid: Grid
+    utm_grid: Grid
+    glt_diag: Dict
+
+    @classmethod
+    def build(cls, glt: np.ndarray, raw_hw: Tuple[int, int],
+              ortho_grid: Grid, utm_grid: Grid,
+              device: Union[str, torch.device, None] = None, *,
+              cstar: bool = True) -> "OrthoGeometry":
+        """The geometry of the 1-based GLT (Ho, Wo, 2) of a raw (H, W)
+        swath on ``ortho_grid``, onto ``utm_grid``: host fields, one
+        upload to ``device`` (default the card). ``cstar=False`` skips
+        the pass-1 columns (a configuration that runs no two-pass
+        warp)."""
+        dev = resolve_device(device)
+        raw_hw = (int(raw_hw[0]), int(raw_hw[1]))
+        flat, valid = prepare_glt(glt, raw_hw)
+        # diag counts straight from prepare_glt's masks
+        n_nonzero = int(np.count_nonzero(np.all(np.asarray(glt) != 0,
+                                                axis=-1)))
+        n_inbounds = int(np.count_nonzero(valid))
+        diag = {
+            "raw_shape_yx": list(raw_hw),
+            "valid_glt_count": n_nonzero,
+            "valid_glt_inbounds_count": n_inbounds,
+            "valid_glt_dropped_oob": n_nonzero - n_inbounds,
+        }
+        rows, cols = source_index_field(ortho_grid, utm_grid)
+        cs = (scanline_cstar(rows, cols, ortho_grid.height) if cstar
+              else None)
+
+        def up(a):
+            return None if a is None else torch.from_numpy(a).to(dev)
+
+        return cls(up(flat), up(valid), up(rows), up(cols), up(cs), raw_hw,
+                   ortho_grid, utm_grid, diag)
+
+    @property
+    def device(self) -> torch.device:
+        return self.flat_idx.device
+
+    def masked_valid(self, quality_mask: Optional[torch.Tensor]
+                     ) -> torch.Tensor:
+        """The GLT validity less the ortho cells whose raw pixel the (H,
+        W) bool ``quality_mask`` flags (a masked raw pixel is no warp
+        source); the validity itself without a mask."""
+        if quality_mask is None:
+            return self.valid
+        if tuple(quality_mask.shape) != self.raw_hw:
+            raise ValueError(
+                f"mask granule shape {tuple(quality_mask.shape)} does not "
+                f"match raw cube {self.raw_hw}")
+        flagged = quality_mask.to(self.device, torch.bool).reshape(-1)
+        return self.valid & ~flagged[self.flat_idx]
+
+
+@dataclass
+class OrthoProducts:
+    """What one :func:`orthorectify_cube` call makes, on its device: the
+    UTM cubes (Hd, Wd, bands) float32 (``data``, ``loc``, ``obs``), their
+    u16 codes (``data_u16``, ``loc_u16``, ``obs_u16``) and the codes of
+    the DATA cube's band ``diag_band`` (``diag_u16``, (Hd, Wd, 1)), each
+    None where the call made none; ``decode``: the codes' decode records
+    by product (``products.reflectance_u16`` and its siblings)."""
+
+    data: Optional[torch.Tensor] = None
+    loc: Optional[torch.Tensor] = None
+    obs: Optional[torch.Tensor] = None
+    data_u16: Optional[torch.Tensor] = None
+    diag_u16: Optional[torch.Tensor] = None
+    diag_band: Optional[int] = None
+    loc_u16: Optional[torch.Tensor] = None
+    obs_u16: Optional[torch.Tensor] = None
+    decode: Dict[str, Dict] = field(default_factory=dict)
+
+
+#: span counter of the bands each ``orthorectify_cube`` call warps
+BANDS_COUNTER = "ortho.bands"
+
+
+def quality_flags(mask_bands: torch.Tensor, quality_bands) -> torch.Tensor:
+    """The (H, W) bool quality mask of an L2A mask granule's (H, W, n)
+    bands where it lies: where any of the ``quality_bands`` flags fires
+    (their sum > 0), ``EmitMaskGranule.quality_mask`` on a tensor
+    (emit_tools.py:271-298). The data bands (5, 6) are refused."""
+    if any(b in EmitMaskGranule.DATA_BAND_INDICES for b in quality_bands):
+        raise ValueError(
+            "Selected flags include a data band (5 or 6), not just "
+            "flag bands")
+    return mask_bands[..., list(quality_bands)].sum(dim=-1) > 0
+
+
+def _warp_product(geometry: OrthoGeometry, raw: torch.Tensor,
+                  valid: torch.Tensor, cfg: OrthoConfig, kind: str,
+                  timer) -> torch.Tensor:
+    """GLT gather + warp of one raw product onto the UTM grid by the
+    configuration's route (:func:`warp_route`), ``valid`` the GLT
+    validity it warps with; the stage records of the ledger."""
+    g = geometry
+    route = warp_route(cfg)
+    if route == "two_pass" and g.cstar is None:
+        raise ValueError("the two-pass warp needs a geometry built with "
+                         "cstar=True")
+    count(BANDS_COUNTER, raw.shape[-1])
+    t = time.perf_counter()
+    if route is not None:
+        out = _orthowarp(raw, g.flat_idx, valid, g.rows, g.cols, g.cstar,
+                         cfg.resampling, cfg.warp_backend, route,
+                         cfg.orthowarp_row_chunks)
+        timer.record(f"{kind}_two_pass_orthowarp" if route == "two_pass"
+                     else f"{kind}_fused_orthowarp", t,
+                     shape=list(out.shape), resampling=cfg.resampling)
+        return out
+    ortho = glt_gather(raw, g.flat_idx, valid, fill_value=NO_DATA_VALUE)
+    timer.record(f"{kind}_gather", t, shape=list(ortho.shape))
+    t = time.perf_counter()
+    out = resample_tensor_to_grid(
+        ortho, g.ortho_grid, g.utm_grid, method=cfg.resampling,
+        nodata=NO_DATA_VALUE, fill=NO_DATA_VALUE)
+    del ortho
+    timer.record(f"{kind}_warp", t, shape=list(out.shape),
+                 resampling=cfg.resampling)
+    return out
+
+
+def orthorectify_cube(
+    geometry: OrthoGeometry,
+    data: Optional[torch.Tensor] = None,
+    *,
+    data_utm: Optional[torch.Tensor] = None,
+    loc: Optional[torch.Tensor] = None,
+    obs: Optional[torch.Tensor] = None,
+    quality_mask: Optional[torch.Tensor] = None,
+    config: OrthoConfig = OrthoConfig(),
+    u16: bool = True,
+    timer=None,
+) -> OrthoProducts:
+    """The resident core of the ortho export: every product of one
+    granule made on its device from tensors there, and returned there.
+
+    - ``data``: the raw (H, W, B) DATA cube; the (H, W) bool
+      ``quality_mask`` (:func:`quality_flags` of the L2A mask) folds into
+      its GLT validity, so a masked raw pixel is no warp source. Or
+      ``data_utm``: a DATA cube already on the UTM grid (the file path's
+      streamed fold, which folded the mask itself).
+    - ``loc``: the raw (H, W, 3) lon / lat / elevation; ``obs``: the raw
+      (H, W, 11) geometry bands. Each is warped with the GLT validity.
+    - ``u16``: also quantize every product (``products``: the DATA
+      cube and its middle band ``-scale lo hi 0 10000`` with sentinel
+      65535; LOC at its fixed ranges and OBS at its p1-p99 ranges from
+      the stride-64 sample, sentinel 0). The OBS ranges are the one read
+      back to the host.
+
+    The products are made on the geometry's device. ``timer``: the file
+    path's stage ledger (``_StageTimer``), which synchronises at each
+    stage; None records and synchronises nothing.
+    Spans: the root ``ortho``, the stages ``ortho.data``, ``ortho.loc``,
+    ``ortho.obs`` and ``ortho.u16``; counters ``ortho.bands`` (bands
+    warped) and, on the card, ``quantize.kernel`` (quantize launches)."""
+    if data is not None and data_utm is not None:
+        raise ValueError("pass a raw DATA cube or a UTM one, not both")
+    cfg = config
+    dev = geometry.device
+    timer = _NoTimer if timer is None else timer
+    out = OrthoProducts()
+
+    def on(x):
+        return None if x is None else x.to(dev, torch.float32)
+
+    with span("ortho", dev):
+        if data is not None or data_utm is not None:
+            with span("ortho.data", dev):
+                if data is not None:
+                    valid = geometry.masked_valid(quality_mask)
+                    out.data = _warp_product(geometry, on(data), valid, cfg,
+                                             "data", timer)
+                else:
+                    out.data = on(data_utm)
+        if loc is not None:
+            with span("ortho.loc", dev):
+                out.loc = _warp_product(geometry, on(loc), geometry.valid,
+                                        cfg, "loc", timer)
+        if obs is not None:
+            with span("ortho.obs", dev):
+                out.obs = _warp_product(geometry, on(obs), geometry.valid,
+                                        cfg, "obs", timer)
+        if u16:
+            with span("ortho.u16", dev):
+                if out.data is not None:
+                    out.data_u16, out.decode["data"] = \
+                        products.reflectance_u16(
+                            out.data, scale_range=cfg.reflectance_scale)
+                    out.diag_band = out.data.shape[-1] // 2
+                    d = out.diag_band
+                    out.diag_u16, _ = products.reflectance_u16(
+                        out.data[..., d:d + 1],
+                        scale_range=cfg.reflectance_scale)
+                if out.loc is not None:
+                    out.loc_u16, out.decode["loc"] = products.loc_u16(
+                        out.loc, lon_range=cfg.lon_range,
+                        lat_range=cfg.lat_range, elev_range=cfg.elev_range)
+                if out.obs is not None:
+                    out.obs_u16, out.decode["obs"] = products.obs_u16(
+                        out.obs, sample_stride=cfg.obs_sample_stride,
+                        percentiles=cfg.obs_percentiles)
+    return out
+
+
 def orthorectify_granule(
     img_file: Union[str, Path],
     out_dir: Union[str, Path],
@@ -216,6 +472,11 @@ def orthorectify_granule(
     """Full DATA (+ optional LOC / OBS) ortho export onto the S2-anchored
     UTM 60 m grid (``pipeline.py:178``). Returns the main projected ENVI
     path + info ledger.
+
+    It reads the granule, builds its :class:`OrthoGeometry`, makes every
+    product on the device through :func:`orthorectify_cube` (the DATA
+    cube of the streamed ingest, or of the whole raw cube, then LOC, OBS
+    and the u16 codes), and writes them.
 
     ``mask_file``: optional EMIT L2A mask granule. Its quality mask
     (``config.quality_bands`` flag bands, emit_tools.py:271-298) is
@@ -320,25 +581,16 @@ def orthorectify_granule(
         return OrthoResult(data_utm, grid, info,
                            wavelengths=wavelengths, good_mask=good_mask)
 
-    # --- GLT preparation (host) ---
-    t0 = time.perf_counter()
-    flat_idx, valid = prepare_glt(g.glt, (g.raw_height, g.raw_width))
-    # diag counts straight from prepare_glt's masks
-    n_nonzero = int(np.count_nonzero(np.all(g.glt != 0, axis=-1)))
-    n_inbounds = int(np.count_nonzero(valid))
-    info["glt_diag"] = {
-        "raw_shape_yx": [g.raw_height, g.raw_width],
-        "valid_glt_count": n_nonzero,
-        "valid_glt_inbounds_count": n_inbounds,
-        "valid_glt_dropped_oob": n_nonzero - n_inbounds,
-    }
-    flat_j = torch.from_numpy(flat_idx).to(dev)
-    valid_j = torch.from_numpy(valid).to(dev)
-    timer.record("glt_prep", t0)
-
-    # --- target UTM grid (the _compute_te contract) ---
+    # --- target UTM grid (the _compute_te contract) and the geometry ---
     utm_grid = s2_anchored_target_grid(g.ortho_grid, s2_grid,
                                        cfg.target_res_m, cfg.target_res_m)
+    route = warp_route(cfg)
+    t0 = time.perf_counter()
+    geom = OrthoGeometry.build(g.glt, (g.raw_height, g.raw_width),
+                               g.ortho_grid, utm_grid, dev,
+                               cstar=route == "two_pass")
+    info["glt_diag"] = dict(geom.glt_diag)
+    timer.record("glt_prep", t0)
 
     # geographic corner ring of the ortho grid (emit_proj.py:731-744)
     og = g.ortho_grid
@@ -347,84 +599,27 @@ def orthorectify_granule(
                [og.x0 + og.width * og.dx, og.y0 - og.height * og.dy],
                [og.x0, og.y0 - og.height * og.dy]]
 
-    wr_field, wc_field = source_index_field(g.ortho_grid, utm_grid)
-    wr_j = torch.from_numpy(wr_field).to(dev)
-    wc_j = torch.from_numpy(wc_field).to(dev)
     # the fused GLT + warp (one pass over the raw cube, no ortho cube),
     # by the two-pass scanline kernel or the tap loop; else the two-step
     # gather + resample_to_grid
-    fused = cfg.fused_orthowarp and cfg.resampling in ("cubic", "bilinear")
-    use_two_pass = fused and cfg.warp_kernel == "two_pass"
-    kernel = "two_pass" if use_two_pass else "taploop"
-    cstar_j = (torch.from_numpy(scanline_cstar(
-        wr_field, wc_field, g.ortho_grid.height)).to(dev)
-        if use_two_pass else None)
     warp_backend = cfg.warp_backend
-    if use_two_pass:
+    if route == "two_pass":
         info["out"]["warp_backend"] = ("pallas" if warp_backend == "pallas"
                                        else "pallas_banded")
     else:
         info["out"]["warp_backend"] = ("auto" if warp_backend
                                        == "pallas_banded" else warp_backend)
 
-    device_holder: Dict = {}
-
-    def _export_product(cube_raw, kind: str, envi_path: Path,
-                        hdr_extra: Dict, utm_precomputed=None,
-                        valid_arg=None) -> Tuple[np.ndarray, torch.Tensor]:
-        """gather + warp -> ENVI write; returns the UTM cube on the host
-        and on the device. ``utm_precomputed`` skips straight to the
-        write (the streamed fold already made the device cube);
-        ``valid_arg`` overrides the GLT validity (quality-masked DATA)."""
-        va = valid_arg if valid_arg is not None else valid_j
-        if utm_precomputed is not None:
-            utm_dev = utm_precomputed
-        elif fused:
-            t = time.perf_counter()
-            raw_t = torch.as_tensor(cube_raw, dtype=torch.float32).to(dev)
-            utm_dev = _orthowarp(raw_t, flat_j, va, wr_j, wc_j, cstar_j,
-                                 cfg.resampling, warp_backend, kernel,
-                                 cfg.orthowarp_row_chunks)
-            del raw_t
-            timer.record(f"{kind}_two_pass_orthowarp" if use_two_pass
-                         else f"{kind}_fused_orthowarp", t,
-                         shape=list(utm_dev.shape),
-                         resampling=cfg.resampling)
-        else:
-            t = time.perf_counter()
-            raw_t = torch.as_tensor(cube_raw, dtype=torch.float32).to(dev)
-            ortho = glt_gather(raw_t, flat_j, va, fill_value=NO_DATA_VALUE)
-            del raw_t
-            timer.record(f"{kind}_gather", t, shape=list(ortho.shape))
-            t = time.perf_counter()
-            utm_dev = resample_tensor_to_grid(
-                ortho, g.ortho_grid, utm_grid, method=cfg.resampling,
-                nodata=NO_DATA_VALUE, fill=NO_DATA_VALUE)
-            del ortho
-            timer.record(f"{kind}_warp", t, shape=list(utm_dev.shape),
-                         resampling=cfg.resampling)
-        if keep_device_cube and kind == "data":
-            device_holder["data"] = utm_dev
-        utm = utm_dev.cpu().numpy()
-        t = time.perf_counter()
-        envi.write_cube(
-            envi_path, utm, utm_grid,
-            interleave="bil", nodata=NO_DATA_VALUE,
-            extra_header=hdr_extra)
-        timer.record(f"{kind}_envi_write", t)
-        return utm, utm_dev
-
     geotiff_dir = out_dir / "geotiff"
-    result_grid = utm_grid
 
-    # ===== DATA =====
+    # ===== reads: DATA (the streamed fold makes its UTM cube), LOC, OBS =====
+    raw = utm_pre = qmask_t = loc_raw = obs_raw = None
     if need_data:
         # L2A quality / band masks (emit_tools.py:271-321). The quality
         # mask (spatial, all bands) folds into the GLT validity channel:
         # masked raw pixels stop being valid warp sources. The
         # per-(pixel, band) band mask rides the warp as premultiplied
         # validity planes (see _warp_chunk_update_bandmask).
-        data_valid_j = valid_j
         vb = None
         if mask_file is not None:
             t0 = time.perf_counter()
@@ -432,17 +627,13 @@ def orthorectify_granule(
                 qmask = mg.quality_mask(cfg.quality_bands).astype(bool)
                 bmask = (mg.band_mask().astype(bool)
                          if cfg.apply_band_mask else None)
-            if qmask.shape != (g.raw_height, g.raw_width):
-                raise ValueError(
-                    f"mask granule shape {qmask.shape} does not match "
-                    f"raw cube ({g.raw_height}, {g.raw_width})")
-            data_valid = valid & ~qmask.reshape(-1)[flat_idx]
-            data_valid_j = torch.from_numpy(data_valid).to(dev)
+            qmask_t = torch.from_numpy(qmask).to(dev)
+            data_valid = geom.masked_valid(qmask_t)
             info["mask"] = {
                 "quality_bands": list(cfg.quality_bands),
                 "quality_masked_px": int(qmask.sum()),
                 "ortho_cells_quality_masked":
-                    int(valid.sum() - data_valid.sum()),
+                    int(geom.valid.sum()) - int(data_valid.sum()),
                 "band_mask_applied": bmask is not None,
                 "band_masked_px": 0,
             }
@@ -454,11 +645,13 @@ def orthorectify_granule(
                 bmask = bmask[:, :, :g.n_bands]
                 info["mask"]["band_masked_px"] = int(bmask.sum())
                 vb = (~bmask).astype(np.float32)
-                if not fused:
+                if route is None:
                     raise ValueError(
                         "apply_band_mask needs the fused orthowarp path "
                         "(fused_orthowarp=True, cubic/bilinear)")
             timer.record("mask_read", t0)
+        else:
+            data_valid = geom.valid
 
         read_seconds = [0.0]
 
@@ -468,15 +661,13 @@ def orthorectify_granule(
             read_seconds[0] += time.perf_counter() - t
             return slab
 
-        raw = None
-        utm_pre = None
         streaming = cfg.streaming_ingest and g.n_bands > cfg.band_chunk
         # a streamed fold needs a warp that takes a band chunk alone: the
         # two-step path gathers and resamples the whole cube
-        can_fold = streaming and fused
-        fold_args = (flat_j, data_valid_j, wr_j, wc_j, cstar_j,
-                     cfg.resampling, cfg.ingest_transfer, warp_backend,
-                     kernel, cfg.orthowarp_row_chunks)
+        can_fold = streaming and route is not None
+        fold_args = (geom.flat_idx, data_valid, geom.rows, geom.cols,
+                     geom.cstar, cfg.resampling, cfg.ingest_transfer,
+                     warp_backend, route, cfg.orthowarp_row_chunks)
         if vb is not None or can_fold:
             t0 = time.perf_counter()
             utm0 = torch.full((utm_grid.height, utm_grid.width, g.n_bands),
@@ -517,7 +708,7 @@ def orthorectify_granule(
                     depth=cfg.ingest_depth, payload_mode=True, device=dev)
                 stage = "data_streamed_orthowarp"
             timer.record(stage, t0, transfer=cfg.ingest_transfer,
-                         chunk_bands=cb, kernel=kernel,
+                         chunk_bands=cb, kernel=route,
                          resampling=cfg.resampling,
                          shape=[utm_grid.height, utm_grid.width,
                                 g.n_bands],
@@ -535,7 +726,55 @@ def orthorectify_granule(
                          chunk_bands=cfg.band_chunk,
                          depth=cfg.ingest_depth)
         else:
-            raw = read_bands(0, g.n_bands)
+            raw = torch.as_tensor(read_bands(0, g.n_bands),
+                                  dtype=torch.float32).to(dev)
+
+    if need_loc:
+        lon = g.location("lon")
+        lat = g.location("lat")
+        elev = g.location("elev")
+        if lon is None or lat is None:
+            info["loc_skipped_reason"] = "granule has no location lon/lat"
+        else:
+            loc_raw = torch.from_numpy(np.stack(
+                [lon, lat, elev if elev is not None else np.zeros_like(lon)],
+                axis=-1).astype(np.float32)).to(dev)
+
+    if need_obs:
+        try:
+            with EmitGranule(obs_file) as obs_g:
+                obs_np = obs_g.read_cube()
+                obs_names = obs_g.band_names
+        except FILE_FAULTS as e:  # record-and-continue (emit_proj.py:1196-1201)
+            info["obs_error"] = str(e)
+        else:
+            nb = obs_np.shape[-1]
+            # band names from the granule's observation_bands when
+            # present (the real L1B_OBS metadata), canonical fallback
+            obs_band_names = (list(obs_names)[:nb] if obs_names
+                              else OBS_BAND_NAMES[:nb])
+            obs_raw = torch.as_tensor(obs_np, dtype=torch.float32).to(dev)
+            del obs_np
+
+    # ===== the device: every product and its u16 codes =====
+    prods = orthorectify_cube(
+        geom, raw, data_utm=utm_pre, loc=loc_raw, obs=obs_raw,
+        quality_mask=qmask_t if raw is not None else None, config=cfg,
+        u16=cfg.save_geotiffs, timer=timer)
+    del raw, utm_pre, loc_raw, obs_raw
+
+    def write_envi(cube: torch.Tensor, kind: str, envi_path: Path,
+                   hdr_extra: Dict) -> None:
+        host = cube.cpu().numpy()
+        t = time.perf_counter()
+        envi.write_cube(envi_path, host, utm_grid, interleave="bil",
+                        nodata=NO_DATA_VALUE, extra_header=hdr_extra)
+        timer.record(f"{kind}_envi_write", t)
+        info["rasters"][f"{kind}_envi"] = raster_meta(
+            utm_grid, host.shape, "float32", NO_DATA_VALUE)
+
+    # ===== DATA =====
+    if need_data:
         hdr_extra = {
             "description": description,
             "sensor type": "EMIT",
@@ -550,39 +789,30 @@ def orthorectify_granule(
             hdr_extra["wavelength units"] = "nanometers"
         if g.fwhm is not None:
             hdr_extra["fwhm"] = [float(x) for x in g.fwhm]
-        utm_cube, utm_dev = _export_product(
-            raw, "data", data_utm, hdr_extra, utm_precomputed=utm_pre,
-            valid_arg=data_valid_j)
-        del raw, utm_pre
+        write_envi(prods.data, "data", data_utm, hdr_extra)
         info["outputs"]["data_envi_bin"] = str(data_utm)
         info["outputs"]["data_envi_hdr"] = str(data_hdr)
-        info["rasters"]["data_envi"] = raster_meta(
-            utm_grid, utm_cube.shape, "float32", NO_DATA_VALUE)
 
         if cfg.save_geotiffs:
             geotiff_dir.mkdir(parents=True, exist_ok=True)
             t = time.perf_counter()
             utm_tif = geotiff_dir / f"{tag}_DATA_warp_utm.tif"
-            rec = products.export_reflectance_u16(
-                utm_dev, utm_grid, utm_tif,
-                scale_range=cfg.reflectance_scale)
+            rec = products.write_reflectance_u16(
+                prods.data_u16, utm_grid, utm_tif, prods.decode["data"])
             timer.record("data_utm_tif", t, **rec)
             info["outputs"]["data_utm_tif"] = str(utm_tif)
             info["rasters"]["data_utm_tif"] = raster_meta(
-                utm_grid, utm_cube.shape, "uint16", 65535)
+                utm_grid, prods.data.shape, "uint16", 65535)
             # diagnostic single-band quicklook (emit_proj.py:989-1012)
             t = time.perf_counter()
             diag_dir = out_dir / "diag"
             diag_dir.mkdir(parents=True, exist_ok=True)
-            diag_band = utm_cube.shape[-1] // 2
             diag_tif = diag_dir / (
-                f"{tag}_DATA_diag_band{diag_band:03d}_warp_utm.tif")
-            products.export_reflectance_u16(
-                utm_dev[..., diag_band:diag_band + 1], utm_grid, diag_tif,
-                scale_range=cfg.reflectance_scale)
+                f"{tag}_DATA_diag_band{prods.diag_band:03d}_warp_utm.tif")
+            products.write_reflectance_u16(
+                prods.diag_u16, utm_grid, diag_tif, prods.decode["data"])
             timer.record("data_diag_tif", t)
             info["outputs"]["data_diag_utm_tif"] = str(diag_tif)
-        del utm_cube, utm_dev
 
         if cfg.write_xml:
             t = time.perf_counter()
@@ -603,71 +833,41 @@ def orthorectify_granule(
             info["outputs"]["data_xml"] = str(data_utm.with_suffix(".xml"))
 
     # ===== LOC =====
-    if need_loc:
-        lon = g.location("lon")
-        lat = g.location("lat")
-        elev = g.location("elev")
-        if lon is None or lat is None:
-            info["loc_skipped_reason"] = "granule has no location lon/lat"
-        else:
-            loc_raw = np.stack(
-                [lon, lat, elev if elev is not None else np.zeros_like(lon)],
-                axis=-1).astype(np.float32)
-            loc_cube, loc_dev = _export_product(loc_raw, "loc", loc_utm, {
-                "description": "EMIT LOC (lon, lat, elev)",
-                "band names": ["longitude", "latitude", "elevation"],
-            })
-            info["outputs"]["loc_envi_bin"] = str(loc_utm)
-            info["rasters"]["loc_envi"] = raster_meta(
-                utm_grid, loc_cube.shape, "float32", NO_DATA_VALUE)
-            if cfg.save_geotiffs:
-                geotiff_dir.mkdir(parents=True, exist_ok=True)
-                loc_tif = geotiff_dir / f"{tag}_LOC_warp_utm.tif"
-                rec = products.export_loc_u16(
-                    loc_dev, utm_grid, loc_tif,
-                    lon_range=cfg.lon_range, lat_range=cfg.lat_range,
-                    elev_range=cfg.elev_range)
-                info["outputs"]["loc_utm_tif"] = str(loc_tif)
-                info["stages"]["loc_utm_tif"] = rec
+    if prods.loc is not None:
+        write_envi(prods.loc, "loc", loc_utm, {
+            "description": "EMIT LOC (lon, lat, elev)",
+            "band names": ["longitude", "latitude", "elevation"],
+        })
+        info["outputs"]["loc_envi_bin"] = str(loc_utm)
+        if cfg.save_geotiffs:
+            geotiff_dir.mkdir(parents=True, exist_ok=True)
+            loc_tif = geotiff_dir / f"{tag}_LOC_warp_utm.tif"
+            info["outputs"]["loc_utm_tif"] = str(loc_tif)
+            info["stages"]["loc_utm_tif"] = products.write_loc_u16(
+                prods.loc_u16, utm_grid, loc_tif, prods.decode["loc"])
 
     # ===== OBS =====
-    if need_obs:
-        try:
-            with EmitGranule(obs_file) as obs_g:
-                obs_raw = obs_g.read_cube()
-                obs_names = obs_g.band_names
-        except FILE_FAULTS as e:  # record-and-continue (emit_proj.py:1196-1201)
-            info["obs_error"] = str(e)
-        else:
-            nb = obs_raw.shape[-1]
-            # band names from the granule's observation_bands when
-            # present (the real L1B_OBS metadata), canonical fallback
-            names = (list(obs_names)[:nb] if obs_names
-                     else OBS_BAND_NAMES[:nb])
-            obs_cube, obs_dev = _export_product(obs_raw, "obs", obs_utm, {
-                "description": "EMIT OBS geometry bands",
-                "band names": names,
-            })
-            info["outputs"]["obs_envi_bin"] = str(obs_utm)
-            info["rasters"]["obs_envi"] = raster_meta(
-                utm_grid, obs_cube.shape, "float32", NO_DATA_VALUE)
-            if cfg.save_geotiffs:
-                geotiff_dir.mkdir(parents=True, exist_ok=True)
-                obs_tif = geotiff_dir / f"{tag}_OBS_warp_utm.tif"
-                rec = products.export_obs_u16(
-                    obs_dev, utm_grid, obs_tif, band_names=names,
-                    sample_stride=cfg.obs_sample_stride,
-                    percentiles=cfg.obs_percentiles)
-                info["outputs"]["obs_utm_tif"] = str(obs_tif)
-                info["stages"]["obs_utm_tif"] = rec
+    if prods.obs is not None:
+        write_envi(prods.obs, "obs", obs_utm, {
+            "description": "EMIT OBS geometry bands",
+            "band names": obs_band_names,
+        })
+        info["outputs"]["obs_envi_bin"] = str(obs_utm)
+        if cfg.save_geotiffs:
+            geotiff_dir.mkdir(parents=True, exist_ok=True)
+            obs_tif = geotiff_dir / f"{tag}_OBS_warp_utm.tif"
+            info["outputs"]["obs_utm_tif"] = str(obs_tif)
+            info["stages"]["obs_utm_tif"] = products.write_obs_u16(
+                prods.obs_u16, utm_grid, obs_tif, prods.decode["obs"],
+                band_names=obs_band_names)
 
     wavelengths = (np.asarray(g.wavelengths)
                    if g.wavelengths is not None else None)
     good_mask = g.good_wavelengths
     g.close()
     _save_info(info, save_info_path)
-    return OrthoResult(data_utm, result_grid, info,
-                       device_cube=device_holder.get("data"),
+    return OrthoResult(data_utm, utm_grid, info,
+                       device_cube=prods.data if keep_device_cube else None,
                        wavelengths=wavelengths, good_mask=good_mask)
 
 

@@ -2,8 +2,10 @@
 full-scale path checks: the granule's constants, and each input built
 once a process (``functools.cache``), so that the table reuses what the
 suite built when both run in one process: the bench scene and its plan
-(``bench``), the full-width granule (``granule``) and its ortho runs
-(``ortho_run``), and a small coregistration scene (``coreg_scene``)."""
+(``bench``), the full-width granule (``granule``) with its OBS and L2A
+mask granules (``granule_products``) and its ortho runs (``ortho_run``,
+``ortho_products_run``), and a small coregistration scene
+(``coreg_scene``)."""
 
 import atexit
 import importlib
@@ -173,6 +175,76 @@ def ortho_run(transfer):
     if transfer == "u16":
         with TiffReader(res.info["outputs"]["data_utm_tif"]) as r:
             run.data = r.read()
+    return run
+
+
+@cache
+def granule_products():
+    """The granule's OBS and L2A mask granules, beside it: 11 smooth
+    geometry bands, and the mask's 8 bands with cloud and cirrus blocks,
+    two spacecraft scan lines and a water block (a flag the quality mask
+    leaves out); no band mask. ``obs``, ``mask`` (paths), ``mask_bands``
+    (raw_h, raw_w, 8) float32."""
+    from hyperres_torch.io.granule import EmitGranule
+    from hyperres_torch.io.hdf5 import HDF5Writer
+
+    g = granule()
+    h, w = ORTHO_RAW
+    with EmitGranule(g.scene.emit_nc_path) as eg:
+        glt, gt = eg.glt.astype(np.float64), np.array(eg.geotransform)
+    yy, xx = np.mgrid[0:h, 0:w] / np.array([h, w])[:, None, None]
+    obs = np.stack([10.0 * (i + 1) + 100.0 * xx + 50.0 * (i % 3) * yy
+                    for i in range(11)], axis=-1).astype(np.float32)
+    wgr = HDF5Writer(g.dir / "obs.nc")
+    wgr.create_dataset("/obs", obs)
+    wgr.create_group("/location")
+    wgr.create_dataset("/location/glt_x", glt[..., 0])
+    wgr.create_dataset("/location/glt_y", glt[..., 1])
+    wgr.set_attrs("/", geotransform=gt)
+    wgr.save()
+    mask = np.zeros((h, w, 8), np.float32)
+    mask[h // 4:h // 3, w // 6:w * 2 // 5, 0] = 1.0
+    mask[h * 4 // 7:h * 3 // 5, w * 5 // 8:w * 3 // 4, 1] = 1.0
+    mask[[h // 8, h * 5 // 7], :, 3] = 1.0
+    mask[h // 25:h // 6, w // 2:w * 2 // 3, 2] = 1.0
+    bands = ORTHO_BANDS + (-ORTHO_BANDS) % 8
+    wgr = HDF5Writer(g.dir / "mask.nc")
+    wgr.create_dataset("/mask", mask)
+    wgr.create_dataset("/band_mask", np.packbits(
+        np.zeros((h, w, bands), np.uint8), axis=-1))
+    wgr.save()
+    return SimpleNamespace(obs=g.dir / "obs.nc", mask=g.dir / "mask.nc",
+                           mask_bands=mask)
+
+
+@cache
+def ortho_products_run():
+    """``orthorectify_granule`` of the granule with f32 ingest (the
+    streamed fold), LOC, its OBS and L2A mask granules into
+    ``ortho_products/`` (removed after), keeping its UTM cube on the
+    card: ``res``, the LOC and OBS ENVI cubes (``loc``, ``obs``) and the
+    decoded GeoTIFFs (``tifs``: output key -> (H, W, bands) codes)."""
+    from hyperres_torch.core.config import OrthoConfig
+    from hyperres_torch.io import envi
+    from hyperres_torch.io.tiff import TiffReader
+    from hyperres_torch.ortho.pipeline import orthorectify_granule
+
+    g, p = granule(), granule_products()
+    out = g.dir / "ortho_products"
+    res = orthorectify_granule(
+        g.scene.emit_nc_path, out, g.tile, obs_file=p.obs, mask_file=p.mask,
+        export_loc=True, config=OrthoConfig(ingest_transfer="f32"),
+        keep_device_cube=True)
+    run = SimpleNamespace(res=res, tifs={})
+    for key in ("data_utm_tif", "data_diag_utm_tif", "loc_utm_tif",
+                "obs_utm_tif"):
+        with TiffReader(res.info["outputs"][key]) as r:
+            run.tifs[key] = np.moveaxis(r.read(), 0, -1)
+    for kind in ("loc", "obs"):
+        hdr = Path(res.info["outputs"][f"{kind}_envi_bin"]).with_suffix(
+            ".hdr")
+        setattr(run, kind, envi.EnviReader(hdr).read())
+    shutil.rmtree(out, ignore_errors=True)
     return run
 
 

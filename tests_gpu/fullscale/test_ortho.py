@@ -1,5 +1,6 @@
 """The ortho export path at full width (``ortho``: the u16 run with LOC,
-then the f32 run), and the quantize and SRF kernels against their plain
+then the f32 run), the resident core against the f32 run with LOC, OBS
+and the L2A mask, and the quantize and SRF kernels against their plain
 versions on its UTM cube."""
 
 import numpy as np
@@ -86,6 +87,46 @@ def test_f32_fold_and_u16_ingest(card, granule, ortho):
            + U16_INGEST_ATOL).float()
     assert float(((cube16 - cube32).abs() / lim)[full].max()) <= 1.0
     assert torch.equal(cube16 == NO_DATA_VALUE, cube32 == NO_DATA_VALUE)
+
+
+def test_resident_core_equals_the_file_path(card, granule):
+    """With LOC, OBS and the L2A mask at full width: one
+    ``orthorectify_cube`` call of the whole raw cube launches each
+    scanline pass three times (DATA, LOC, OBS) and the quantize kernel
+    four times (DATA, its diagnostic band, LOC, OBS), and its products
+    equal ``orthorectify_granule``'s f32 run (the streamed fold in 9
+    chunks) bit for bit: the ENVI cubes and the decoded GeoTIFF codes."""
+    import card_inputs
+    from hyperres_torch.io.granule import EmitGranule
+    from hyperres_torch.ortho.pipeline import (
+        OrthoGeometry, orthorectify_cube, quality_flags)
+
+    run = card_inputs.ortho_products_run()
+    mask = card_inputs.granule_products().mask_bands
+    obs_file = card_inputs.granule_products().obs
+    with EmitGranule(granule.scene.emit_nc_path) as g, \
+            EmitGranule(obs_file) as og:
+        geom = OrthoGeometry.build(g.glt, (g.raw_height, g.raw_width),
+                                   g.ortho_grid, run.res.utm_grid, card)
+        raw = torch.from_numpy(g.read_cube()).to(card)
+        loc = torch.from_numpy(np.stack(
+            [g.location("lon"), g.location("lat"), g.location("elev")],
+            axis=-1).astype(np.float32)).to(card)
+        obs = torch.from_numpy(og.read_cube()).to(card)
+    qmask = quality_flags(torch.from_numpy(mask).to(card), (0, 1, 3))
+    core, counts = counted(lambda: orthorectify_cube(
+        geom, raw, loc=loc, obs=obs, quality_mask=qmask))
+    assert all(counts.get(k) == 3 for k in KERNEL_NAMES.values()), counts
+    assert counts.get(QUANT) == 4, counts
+    assert run.res.info["mask"]["ortho_cells_quality_masked"] > 0
+    assert torch.equal(core.data, run.res.device_cube)
+    assert np.array_equal(core.loc.cpu().numpy(), run.loc)
+    assert np.array_equal(core.obs.cpu().numpy(), run.obs)
+    for key, codes in (("data_utm_tif", core.data_u16),
+                       ("data_diag_utm_tif", core.diag_u16),
+                       ("loc_utm_tif", core.loc_u16),
+                       ("obs_utm_tif", core.obs_u16)):
+        assert np.array_equal(run.tifs[key], codes.cpu().numpy()), key
 
 
 def test_quantize_forms_on_the_utm_cube(ortho):
