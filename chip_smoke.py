@@ -262,12 +262,32 @@ class Inputs:
 
     @cached_property
     def warp(self):
-        """The plan's scanline operands: extended source, c*, rows."""
+        """The plan's scanline operands as the dense route takes them:
+        extended source, c*, rows."""
         from hyperres_torch.kernels.warp import orthowarp_src_ext
 
         p = self.bench.plan
         return (orthowarp_src_ext(self.bench.raw, p._flat_idx, p._valid),
                 p._cstar, p._wr)
+
+    @cached_property
+    def cross(self):
+        """The scanline kernel's operands in the "cross-CRS resample"
+        path, made as ``resample_tensor_to_grid`` makes them there: the
+        plan's GLT-gathered cube with a nodata value, a validity channel
+        per band (Ho, Wo, 2 B), and its c* and rows onto the UTM grid."""
+        from hyperres_torch.core.constants import NO_DATA_VALUE
+        from hyperres_torch.kernels import warp as twarp
+        from hyperres_torch.kernels.host import (
+            scanline_cstar, source_index_field,
+        )
+
+        src_grid, dst_grid = self.bench.scene["ortho_grid"], \
+            self.bench.scene["utm60"]
+        rows, cols = source_index_field(src_grid, dst_grid)
+        cstar = scanline_cstar(rows, cols, src_grid.height)
+        return (twarp.two_pass_src_ext(_gathered(self.bench), NO_DATA_VALUE),
+                twarp._on(cstar, self.dev), twarp._on(rows, self.dev))
 
     @cached_property
     def ot(self):
@@ -376,6 +396,27 @@ def _coreg_call(scene, dev):
         raise RuntimeError(f"coregistration failed: {out['attempts']}")
 
 
+def _gathered(b):
+    """The plan's GLT gather of the bench scene's raw cube (Ho, Wo, B)."""
+    from hyperres_torch.kernels.glt import glt_gather
+
+    return glt_gather(b.raw, b.plan._flat_idx, b.plan._valid)
+
+
+def _two_pass_call(b):
+    """``resample_tensor_to_grid``'s cross-CRS route (``warp_two_pass``,
+    the scanline kernel's two passes) on the plan's GLT-gathered cube
+    onto the UTM grid, with a nodata value, as
+    tests_gpu/fullscale/test_plans.py runs it."""
+    from hyperres_torch.core.constants import NO_DATA_VALUE
+    from hyperres_torch.kernels.warp import resample_tensor_to_grid
+
+    ortho = _gathered(b)
+    return ran(lambda: resample_tensor_to_grid(
+        ortho, b.scene["ortho_grid"], b.scene["utm60"], method="cubic",
+        nodata=NO_DATA_VALUE, fill=NO_DATA_VALUE))
+
+
 def _srf_call(cube, s):
     from hyperres_torch.kernels.srf import srf_synthesize_auto
 
@@ -388,6 +429,7 @@ def _sr_call(model, X):
 
 PATHS = {
     "plan": lambda i: ran(_plan_call, i.bench, i.bench.plan),
+    "cross-CRS resample": lambda i: _two_pass_call(i.bench),
     "dense plan": lambda i: ran(_plan_call, i.bench, bench_torch.build_plan(
         i.bench.scene, i.dev, warp_kernel="pallas")),
     "OT stage": lambda i: ran(_ot_call, i.ot),
@@ -411,7 +453,7 @@ def _pass_case(axis: int):
             scanline_resample, scanline_resample_reference,
         )
 
-        src, cstar, rows = inp.warp
+        src, cstar, rows = inp.cross
         if axis == 0:   # pass 2 reads the kernel's pass-1 output
             src, pos = scanline_resample(src, cstar, 1), rows
         else:
@@ -421,6 +463,48 @@ def _pass_case(axis: int):
                     lambda: scanline_resample_reference(src, pos, axis),
                     near(KERNEL_TOL), scanline_bound(src, pos, out),
                     reps=(10, 3))
+    return case
+
+
+def _orthowarp_case(n: int):
+    """Pass ``n`` of the plan's fused ortho warp against the eager chain
+    it replaces there, on the same source (pass 2 on the kernel's pass-1
+    output): pass 1 against ``orthowarp_src_ext`` and the scanline
+    kernel's pass 1; pass 2 against the scanline kernel's pass 2 and
+    ``_renormalise``. Bit for bit."""
+    def case(inp):
+        import torch
+        from hyperres_torch.kernels import orthowarp as ow
+        from hyperres_torch.kernels import warp as twarp
+        from hyperres_torch.kernels.banded import scanline_resample
+
+        p, raw = inp.bench.plan, inp.bench.raw
+        flat, cstar, rows, cols = p._flat_idx, p._cstar, p._wr, p._wc
+        valid_f = p._valid.to(torch.float32)
+        (h, w, b), (ho, wo), wd = raw.shape, flat.shape, cstar.shape[1]
+        if n == 1:
+            # the raw cube, GLT and validity read once, c* once, the
+            # (Ho, Wd, B + 1) intermediate written once
+            work = bound(4.0 * (h * w * b + 2 * ho * wo + ho * wd
+                                + ho * wd * (b + 1)), 8.0 * ho * wd * (b + 1))
+            return Case(lambda: ow.pass1(raw, flat, valid_f, cstar),
+                        lambda: scanline_resample(twarp.orthowarp_src_ext(
+                            raw, flat, p._valid), cstar, 1),
+                        bit_equal, work, reps=(10, 3))
+        mid = ow.pass1(raw, flat, valid_f, cstar)
+        hd = rows.shape[0]
+        keep = twarp._centre_in(rows, cols, ho, wo)
+
+        def plain():
+            out_ext = scanline_resample(mid, rows, 0)
+            return twarp._renormalise(out_ext[..., :b], out_ext[..., b:],
+                                      keep, -9999.0)
+        # the intermediate read once, rows and cols once, the result
+        # written once
+        work = bound(4.0 * (ho * wd * (b + 1) + 2 * hd * wd + hd * wd * b),
+                     8.0 * hd * wd * (b + 1))
+        return Case(lambda: ow.pass2(mid, rows, cols, wo), plain, bit_equal,
+                    work, reps=(10, 3))
     return case
 
 
@@ -640,9 +724,19 @@ def _resample_case(inp):
 
 ROWS = [
     Row("scanline_resample_pass1", "hyperres_torch/csrc/scanline_warp.cu",
-        "hyperres/kernels/pallas_ops.py:390", _pass_case(1), "plan"),
+        "hyperres/kernels/pallas_ops.py:390", _pass_case(1),
+        "cross-CRS resample"),
     Row("scanline_resample_pass2", "hyperres_torch/csrc/scanline_warp.cu",
-        "hyperres/kernels/pallas_ops.py:467", _pass_case(0), "plan"),
+        "hyperres/kernels/pallas_ops.py:467", _pass_case(0),
+        "cross-CRS resample"),
+    Row("orthowarp_pass1", "hyperres_torch/csrc/scanline_warp.cu",
+        "hyperres/kernels/pallas_ops.py:390 with the GLT gather "
+        "(hyperres/kernels/warp.py:880-884) folded in", _orthowarp_case(1),
+        "plan"),
+    Row("orthowarp_pass2", "hyperres_torch/csrc/scanline_warp.cu",
+        "hyperres/kernels/pallas_ops.py:467 with the renormalisation "
+        "(hyperres/kernels/warp.py:921-929) folded in", _orthowarp_case(2),
+        "plan"),
     Row("upsample_apply", "hyperres_torch/csrc/upsample_apply.cu",
         "none (hyperres/fusion/fused.py:233-275, phase 4, left to XLA's "
         "fusion)", _apply_case, "plan"),

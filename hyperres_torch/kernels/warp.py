@@ -1,9 +1,10 @@
 """Grid-to-grid resampling on the device (``hyperres/kernels/warp.py``).
 
 - :func:`orthowarp_two_pass`: fused GLT gather + two-pass scanline warp
-  onto the S2-anchored UTM grid (``warp.py:837-931``), both passes in
-  the hand-written scanline kernel (:mod:`.banded`), by the banded route
-  or, with ``backend="pallas"``, the dense route.
+  onto the S2-anchored UTM grid (``warp.py:837-931``): on a CUDA device
+  by the banded route two kernels (:mod:`.orthowarp`, the GLT gather in
+  pass 1, the renormalisation in pass 2); with ``backend="pallas"``, and
+  on the CPU, the chain of scanline passes (:mod:`.banded`).
 - :func:`warp_two_pass`: the same two kernel passes for any grid pair
   (no GLT), with one validity channel per band when a nodata value is
   given (``warp.py:1007``).
@@ -41,6 +42,7 @@ from ..core.grid import Grid
 from ..device import resolve_device
 from ..utils.profiling import count
 
+from . import orthowarp as _ow
 from . import sep_resample as _sep
 from .banded import (
     check_precision, scanline_resample, scanline_resample_dense,
@@ -107,14 +109,26 @@ def orthowarp_two_pass(raw: torch.Tensor, glt_flat_idx: torch.Tensor,
     banded route; ``"pallas"`` the dense route of
     ``pallas_scanline_resample`` for both passes (``warp.py:895-904``),
     whose pass 2 reads pass 1's natural layout where the reference
-    transposes. Both routes make the same kernel launches, each counted
-    under its route's name. ``precision`` ``"high"`` and ``"highest"``
-    both compute exact f32, equal to the reference's ``"highest"`` result
-    to f32 rounding; ``"default"`` is not ported."""
+    transposes. On a CUDA tensor the banded route is two kernels
+    (:mod:`.orthowarp`): pass 1 reads the raw cube through the GLT and
+    its validity in place, pass 2 renormalises and fills in its epilogue;
+    they count ``orthowarp.kernel`` in the caller's open span and equal
+    the plain chain bit for bit. The plain chain, which the CPU and the
+    dense route run, is ``orthowarp_src_ext`` (the GLT gather times the
+    validity, and the validity as one more channel), the two scanline
+    passes (:mod:`.banded`, each counted under its route's name) and
+    ``_renormalise``. ``precision`` ``"high"`` and ``"highest"`` both
+    compute exact f32, equal to the reference's ``"highest"`` result to
+    f32 rounding; ``"default"`` is not ported."""
     if backend not in WARP_BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (one of "
                          f"{WARP_BACKENDS})")
     check_precision(precision)
+    if _ow.takes_kernel(raw.device, backend):
+        out = _ow.orthowarp(raw, glt_flat_idx, glt_valid, rows, cols, cstar,
+                            method, fill)
+        count(_ow.ORTHOWARP_COUNTER)
+        return out
     b = raw.shape[-1]
     ho, wo = glt_flat_idx.shape
     src_ext = orthowarp_src_ext(raw, glt_flat_idx, glt_valid)

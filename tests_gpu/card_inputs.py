@@ -115,6 +115,32 @@ def counted(fn):
     return out, dict(launch_counts)
 
 
+def eager_orthowarp(raw, flat, valid, rows, cols, cstar, method="cubic",
+                    fill=-9999.0):
+    """(pass-1 output, result) of the fused ortho warp's eager chain on
+    the card: ``orthowarp_src_ext``, the scanline kernel's two passes,
+    ``_renormalise``."""
+    from hyperres_torch.kernels import banded
+    from hyperres_torch.kernels import warp as twarp
+
+    b = raw.shape[-1]
+    ho, wo = flat.shape
+    h = banded.scanline_resample(twarp.orthowarp_src_ext(raw, flat, valid),
+                                 cstar, 1, method)
+    out_ext = banded.scanline_resample(h, rows, 0, method)
+    return h, twarp._renormalise(out_ext[..., :b], out_ext[..., b:],
+                                 twarp._centre_in(rows, cols, ho, wo), fill)
+
+
+def assert_bits(got, want):
+    """Equal bit for bit, NaN in the same places."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want))
+    assert torch.equal(got.view(torch.int32)[~nan],
+                       want.view(torch.int32)[~nan])
+
+
 def script(name):
     """The module of ``scripts/<name>.py``, one of the port's programs."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))

@@ -7,7 +7,7 @@ import time
 import pytest
 
 from card_inputs import ORTHO_BANDS, counted
-from hyperres_torch.kernels.banded import KERNEL_NAMES
+from hyperres_torch.kernels.orthowarp import KERNEL_NAMES
 
 pytestmark = pytest.mark.gpu
 
@@ -19,9 +19,10 @@ BATCH_TILE = 32
 
 def test_batch_driver(card, workdir):
     """Every pair ``done`` on the card, two pipelines overlapping in wall
-    clock, each scanline pass launched for every pair; a second run runs
-    nothing (resume); with a fourth job whose granule is missing, that
-    one ``failed`` after two recorded attempts and the rest ``done``."""
+    clock, each fused ortho warp pass launched for every pair; a second
+    run runs nothing (resume); with a fourth job whose granule is
+    missing, that one ``failed`` after two recorded attempts and the
+    rest ``done``."""
     from hyperres_torch.batch import BatchPairDriver, PairJob
     from hyperres_torch.core.config import TilingConfig
     from hyperres_torch.testing.scenes import make_scene

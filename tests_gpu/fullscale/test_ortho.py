@@ -12,7 +12,7 @@ from card_inputs import (
 )
 from hyperres_torch.core.constants import NO_DATA_VALUE
 from hyperres_torch.kernels import srf
-from hyperres_torch.kernels.banded import KERNEL_NAMES
+from hyperres_torch.kernels.orthowarp import KERNEL_NAMES
 from hyperres_torch.kernels.quantize import (
     KERNEL_NAME as QUANT, pallas_quantize_u16, quantize_u16,
     quantize_u16_reference,
@@ -30,8 +30,8 @@ U16_INGEST_ATOL = 1e-6
 
 @pytest.mark.parametrize("transfer", ["u16", "f32"])
 def test_ortho_run(ortho, transfer):
-    """Each run launches each scanline pass once per chunk (and once for
-    LOC) and the quantize kernel once per u16 product (DATA, its
+    """Each run launches each fused ortho warp pass once per chunk (and
+    once for LOC) and the quantize kernel once per u16 product (DATA, its
     diagnostic band, LOC); its UTM cube is a finite 285-band cube; the
     u16 run's decoded DATA GeoTIFF equals the plain quantizer's codes of
     its cube."""
@@ -92,8 +92,8 @@ def test_f32_fold_and_u16_ingest(card, granule, ortho):
 def test_resident_core_equals_the_file_path(card, granule):
     """With LOC, OBS and the L2A mask at full width: one
     ``orthorectify_cube`` call of the whole raw cube launches each
-    scanline pass three times (DATA, LOC, OBS) and the quantize kernel
-    four times (DATA, its diagnostic band, LOC, OBS), and its products
+    fused ortho warp pass three times (DATA, LOC, OBS) and the quantize
+    kernel four times (DATA, its diagnostic band, LOC, OBS), and its products
     equal ``orthorectify_granule``'s f32 run (the streamed fold in 9
     chunks) bit for bit: the ENVI cubes and the decoded GeoTIFF codes."""
     import card_inputs

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from card_inputs import ORTHO_CHUNKS, PAIRS_SHIFT, counted
-from hyperres_torch.kernels.banded import KERNEL_NAMES
+from hyperres_torch.kernels.orthowarp import KERNEL_NAMES
 from hyperres_torch.kernels.deshift_warp import KERNEL_NAME as DESHIFT
 from hyperres_torch.kernels.quantize import KERNEL_NAME as QUANT
 from hyperres_torch.kernels.sr_predict import KERNEL_NAME as SR
@@ -32,9 +32,9 @@ def test_run_pair_pipeline(granule, shifted_s2, workdir):
     values in [0, 1]; tiles are written with a record each and the
     manifest; the SR fit's ``r2_mean`` > PAIRS_R2_MIN;
     ``emit_sr_10m.tif`` decodes with one u16 band per SR band on the fused
-    product's grid; ``report.md`` has every section; each scanline pass
-    launched at least once per chunk, quantize at least once, the SR
-    kernel and the deshift kernel exactly once."""
+    product's grid; ``report.md`` has every section; each fused ortho warp
+    pass launched at least once per chunk, quantize at least once, the
+    SR kernel and the deshift kernel exactly once."""
     from hyperres_torch.core.config import (
         CoregConfig, OrthoConfig, PolyFusionConfig, RidgeSRConfig,
         TilingConfig,

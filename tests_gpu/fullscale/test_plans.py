@@ -2,16 +2,18 @@
 ``warp_kernel="pallas"``, ``ot_affine``, the tap loop), each against
 ``bench.py``'s gates (``bench_torch.accuracy_metrics`` and ``GATES``:
 finite fraction > 0.3, max <= 1, pipeline PSNR >= 45 dB, SAM <= 0.01 rad,
-method PSNR >= 28 dB) on its own ``s2_reference_10m``; and
-``warp_two_pass`` with a nodata value on the scene's geographic cube."""
+method PSNR >= 28 dB) on its own ``s2_reference_10m``; the fused ortho
+warp against its eager chain at the cells' shapes; and ``warp_two_pass``
+with a nodata value on the scene's geographic cube."""
 
 import pytest
 import torch
 
 import bench_torch
-from card_inputs import KERNEL_TOL, counted
+from card_inputs import KERNEL_TOL, assert_bits, counted, eager_orthowarp
 from hyperres_torch.core.constants import NO_DATA_VALUE
 from hyperres_torch.kernels.banded import DENSE_KERNEL_NAME, KERNEL_NAMES
+from hyperres_torch.kernels.orthowarp import KERNEL_NAMES as FUSED_WARP
 from hyperres_torch.kernels.upsample_apply import KERNEL_NAME as APPLY
 
 pytestmark = pytest.mark.gpu
@@ -48,12 +50,13 @@ def gates(plan, out, bench, method="ot_poly", gated=True):
 
 
 def test_default_plan(bench, base):
-    """The default plan: EXPECT_UTM / EXPECT_FUSED, each scanline pass and
-    the 10 m apply kernel launched once a call, bench.py's gates."""
+    """The default plan: EXPECT_UTM / EXPECT_FUSED, each fused ortho warp
+    pass and the 10 m apply kernel launched once a call, bench.py's
+    gates."""
     out, counts = base
     assert tuple(out["utm_cube"].shape) == EXPECT_UTM
     assert tuple(out["fused_10m"].shape) == EXPECT_FUSED
-    assert all(counts.get(k) == 1 for k in (*KERNEL_NAMES.values(), APPLY)
+    assert all(counts.get(k) == 1 for k in (*FUSED_WARP.values(), APPLY)
                ), counts
     gates(bench.plan, out, bench)
 
@@ -90,7 +93,8 @@ def test_taploop_plan(bench, card, base):
 
     plan = bench_torch.build_plan(bench.scene, card, warp_kernel="taploop")
     out, counts = run(plan, bench)
-    assert not set(counts) & set(KERNEL_NAMES.values()), counts
+    assert not set(counts) & {*KERNEL_NAMES.values(), *FUSED_WARP.values()
+                              }, counts
     gates(plan, out, bench)
     ref, utm = base[0]["utm_cube"], out["utm_cube"]
     _, p_db, _ = (float(v) for v in cube_psnr_sam(ref, utm,
@@ -101,6 +105,35 @@ def test_taploop_plan(bench, card, base):
                   .mean())
     assert p_db >= TAPLOOP_PSNR_GATE and agree > TAPLOOP_MASK_AGREEMENT, (
         p_db, agree)
+
+
+@pytest.mark.parametrize("bands,masked", [(285, False), (285, True),
+                                          (3, False), (11, False)])
+def test_fused_warp_equals_the_eager_chain(bench, card, bands, masked):
+    """At the cells' shapes (raw 1242 x 1280, ortho 1510 x 1534, UTM
+    1523 x 1550) ``orthowarp_two_pass`` on the plan's GLT and fields, as
+    ``rgb10.resident`` and ``ortho60.resident`` run it, equals the eager
+    chain bit for bit: the DATA cube with the GLT validity, and with ~10 %
+    of the raw pixels quality-flagged (``OrthoGeometry.masked_valid``);
+    3 and 11 bands of it as the LOC and OBS warps. One launch of each
+    fused pass a warp."""
+    from hyperres_torch.kernels.warp import orthowarp_two_pass
+
+    p = bench.plan
+    valid = p._valid
+    if masked:
+        gen = torch.Generator(device=card).manual_seed(24)
+        flagged = torch.rand(bench.raw.shape[0] * bench.raw.shape[1],
+                             generator=gen, device=card) < 0.1
+        valid = valid & ~flagged[p._flat_idx.long()]
+    raw = bench.raw[..., :bands].contiguous()
+    ops = (p._flat_idx, valid, p._wr, p._wc, p._cstar)
+    got, counts = counted(lambda: orthowarp_two_pass(raw, *ops))
+    assert counts == {name: 1 for name in FUSED_WARP.values()}, counts
+    _, want = eager_orthowarp(raw, *ops, fill=NO_DATA_VALUE)
+    assert_bits(got, want)
+    assert bool((want == NO_DATA_VALUE).any())
+    assert bool((want != NO_DATA_VALUE).any())
 
 
 def test_warp_two_pass_with_nodata(bench, card):

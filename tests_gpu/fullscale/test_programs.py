@@ -14,7 +14,7 @@ import pytest
 
 import bench_torch
 from card_inputs import MAIN_SCALE, counted, script
-from hyperres_torch.kernels.banded import KERNEL_NAMES
+from hyperres_torch.kernels.orthowarp import KERNEL_NAMES
 from hyperres_torch.kernels.quantize import KERNEL_NAME as QUANT
 
 pytestmark = pytest.mark.gpu
@@ -35,7 +35,7 @@ def test_bench_torch(bench):
     """``bench_torch.py`` with HYPERRES_BENCH_SCALE=1.0 and no other
     HYPERRES_BENCH_* variable exits 0 within BENCH_TIMEOUT s with one
     stdout line, a JSON object that meets ``bench.py``'s gates and shows
-    ``bench_torch.DEFAULT_RUNS`` launches of each scanline pass."""
+    ``bench_torch.DEFAULT_RUNS`` launches of each fused ortho warp pass."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("HYPERRES_BENCH_")}
     env.update(PYTHONPATH=str(REPO), HYPERRES_BENCH_SCALE=str(MAIN_SCALE))
@@ -56,7 +56,7 @@ def test_bench_torch(bench):
 
 def test_throughput_program(card, monkeypatch):
     """``torch_bench_throughput`` at PROGRAMS_SCALE with PROGRAMS_GRANULES
-    granules: each scanline pass launched for the warm-up and every
+    granules: each fused ortho warp pass launched for the warm-up and every
     granule."""
     monkeypatch.setenv("HYPERRES_TP_SCALE", str(PROGRAMS_SCALE))
     monkeypatch.setenv("HYPERRES_TP_GRANULES", str(PROGRAMS_GRANULES))
@@ -70,15 +70,15 @@ def test_throughput_program(card, monkeypatch):
                                   "torch_validate_fused_parity"])
 def test_validation(card, name):
     """Each validation at PROGRAMS_SCALE passes its own checks (a failed
-    one exits) and launches each scanline pass."""
+    one exits) and launches each fused ortho warp pass."""
     _, counts = counted(lambda: script(name).main([str(PROGRAMS_SCALE)]))
     assert all(counts.get(k, 0) >= 1 for k in PASSES), counts
 
 
 def test_production_run(card, workdir):
     """``torch_run_production_fullscale.run`` on a PROD_RAW granule with a
-    PROD_S2 px stack: each scanline pass and quantize launched, the fused
-    product finite on > 0.3 of its pixels, a report."""
+    PROD_S2 px stack: each fused ortho warp pass and quantize launched,
+    the fused product finite on > 0.3 of its pixels, a report."""
     res, counts = counted(lambda: script("torch_run_production_fullscale")
                           .run(workdir / "prod", raw_shape=PROD_RAW,
                                s2_size=PROD_S2))

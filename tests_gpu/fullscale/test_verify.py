@@ -10,15 +10,16 @@ import warnings
 import pytest
 
 from card_inputs import ORTHO_CHUNKS, counted
-from hyperres_torch.kernels.banded import KERNEL_NAMES
+from hyperres_torch.kernels.orthowarp import KERNEL_NAMES
 
 pytestmark = pytest.mark.gpu
 
 
 def test_verify_granule_passes(granule, workdir):
     """``passed`` is true at the default gates, the JSON and the report
-    are written, and each scanline pass launched once per chunk of the
-    shipped ortho run (the exact run and both fusions launch none)."""
+    are written, and each fused ortho warp pass launched once per chunk
+    of the shipped ortho run (the exact run and both fusions launch
+    none)."""
     from hyperres_torch.verify import verify_granule
 
     with warnings.catch_warnings():

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 
 from hyperres_torch.device import launch_counts, reset_launch_counts
-from hyperres_torch.kernels.banded import KERNEL_NAMES
+from hyperres_torch.kernels.orthowarp import KERNEL_NAMES
 from hyperres_torch.kernels.quantize import KERNEL_NAME as QUANTIZE
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
@@ -42,8 +42,8 @@ def test_torch_demo_pairs_on_card(cuda, tmp_path, record_property):
     matplotlib): the ortho cube within 0.05 dB of 53.25 dB PSNR and 1e-4
     rad of 0.0066 rad SAM against the analytic world (the JAX twin's
     readings on the CPU, the bounds of tests/test_torch_examples.py plus
-    the printed digits), 8 tiles, SR mean R² > 0.99; each scanline pass
-    and the quantize kernel launched."""
+    the printed digits), 8 tiles, SR mean R² > 0.99; each fused ortho
+    warp pass and the quantize kernel launched."""
     got, counts = run_demo("pairs", [str(tmp_path), "--no-quicklook"],
                            record_property)
     assert abs(got["ortho_psnr_db"] - 53.25) <= 0.05 + 0.005
@@ -56,8 +56,8 @@ def test_torch_demo_pairs_on_card(cuda, tmp_path, record_property):
 @pytest.mark.gpu
 def test_torch_demo_coreg_on_card(cuda, tmp_path, record_property):
     """The coregistration demo: success on band B08, the recovered shift
-    within 0.15 px of the applied (2.4, -1.7) px; each scanline pass and
-    the quantize kernel launched."""
+    within 0.15 px of the applied (2.4, -1.7) px; each fused ortho warp
+    pass and the quantize kernel launched."""
     got, counts = run_demo("coreg", [str(tmp_path)], record_property)
     assert got["success"] is True and got["s2_code"] == "B08"
     assert np.all(np.abs(np.subtract(got["recovered_px"], got["applied_px"]))
